@@ -9,13 +9,23 @@ Phases, each printing one JSON progress line:
   device   the card's name, count and power limit (nvidia-smi);
   build    nvcc builds the hand-written kernels (csrc/*.cu) into
            build/percepnet_tpu_torch/ and the script times it;
-  comb     the comb-filter kernel against its plain PyTorch version on the
-           card, at the serving and batch shapes, timed with CUDA events;
+  comb     through percepnet_tpu_torch.bench_comb: both comb kernels (v1
+           csrc/comb.cu, the row-layout v2 csrc/comb_rows.cu), each with
+           an f32 and a bf16 store, against their plain PyTorch version on
+           the card at the serving and batch shapes, then timed with CUDA
+           events (the timed run is v2's path: its launch count);
   batch    enhance_chunk with the round-5 checkpoint at 16 streams x 200
            frames on the card, against the same call on the CPU;
+  batch_bf16  the bf16 serving tier (compute_dtype=bfloat16) on 16
+           clean/noisy pairs at the checkpoint's training scale: pitch
+           periods against the f32 tier, g/r against the port's CPU run,
+           and the quality check of tools/quality_gate.py (bf16 vs f32
+           STOI and SI-SDR);
   serve    StreamingServer (64 slots, 8 streams) for 100 ticks plus the
            flush, against one batched enhance_chunk on the card;
-  profile  torch.profiler over 10 of those ticks: kernels per tick and the
+  serve_bf16  the same with model_dtype=bfloat16 and io_int16=True,
+           against one batched bf16 enhance_chunk, truncated alike;
+  profile  torch.profiler over 10 f32 ticks: kernels per tick and the
            device's busy share.
 Then a `kernels` line and, last, the result line.  Any failed check
 raises and the script exits non-zero without a result line; so does a
@@ -38,19 +48,31 @@ ROOT = pathlib.Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "artifacts" / "exp_log1p_30000_params.npz"
 FEATGEN = ROOT / "tests" / "goldens" / "featgen.npz"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor)
-# rate; the card's power limit is printed beside every time.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
-COMB_REL_TOL = 1e-6        # kernel vs plain version, of the output's scale
+COMB_REL_TOL = 1e-6        # v1 f32 kernel vs plain, of the output's scale;
+                           # the bf16 stores and v2 must match bit for bit
 PCM_TOL = 5e-4             # card vs CPU, normalized PCM (test_nn_parity)
 GR_TOL = 3e-3              # card vs CPU, gains/strengths (test_nn_parity)
 SERVE_ATOL = 2e-3          # per-tick server vs one batched call (test_serve)
+# bf16 tier: g/r mean abs, bf16 vs another bf16 run (tests/test_model.py)
+GR_BF16_MEAN_TOL = 0.03
+# bf16 streaming vs batch, in int16 LSB: 3e-3 of full scale + 32 LSB
+# (tests/test_pipeline.py:test_streaming_cli_bf16_raw_scale)
+SERVE_BF16_LSB = 3e-3 * 32768 + 32
+# at the wire's /32768 scale this checkpoint's output peaks near 100 LSB,
+# where the LSB bound says little: each stream must also follow the batch
+# call's output (a silent or shifted stream correlates far below this)
+SERVE_BF16_MIN_CORR = 0.99
+# bf16 vs f32 quality deltas (tools/quality_gate.py's bf16 gate)
+DSTOI_TOL, DSISDR_TOL = 0.005, 0.3
+
+
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One progress line; at_s is the script's host time so far."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - START}), flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -58,69 +80,53 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def time_ms(fn, warmup: int = 3, runs: int = 25) -> float:
-    """Median device time of `runs` calls, each between two CUDA events.
-
-    A spin kernel (~1 ms) is queued before each start event, so the host
-    has enqueued the whole call before the card reaches it: the events
-    then time the card's work, not the host's launch path."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def comb_bound(bsz: int, t: int, n_pad: int) -> tuple[float, str]:
-    """Least time for the comb at this shape: every input read once and
-    the output written once, or 15 flops per output at the f32 peak."""
-    n_bytes = 4 * (bsz * n_pad + bsz * t + bsz * t * 960 + 960 + 7)
-    flops = 15 * bsz * t * 960
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
 def phase_comb(rng: np.random.Generator) -> dict:
+    """Both comb kernels and both stores against the plain version at
+    each shape, then timed; the timed run is the bench's own path, so
+    its launches of v2 are v2's count."""
     import torch
+    from percepnet_tpu_torch import bench_comb
     from percepnet_tpu_torch.ops import comb
     shapes = [(64, 100), (64, 1), (16, 200), (3, 37)]
-    rows, max_abs, max_rel = [], 0.0, 0.0
+    inputs = []
     for bsz, t in shapes:
         n_pad = t * 480 + 5280
-        s_pad = torch.from_numpy(
-            rng.standard_normal((bsz, n_pad)).astype(np.float32)).cuda()
-        period = torch.from_numpy(
-            rng.integers(60, 770, (bsz, t)).astype(np.int32)).cuda()
-        got = comb.comb_cuda(s_pad, period, 2400)
-        ref = comb.comb_ref(s_pad, period, 2400)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        require(bool(torch.isfinite(got).all()), f"comb finite at {bsz}x{t}")
+        inputs.append((
+            torch.from_numpy(rng.standard_normal((bsz, n_pad)).astype(
+                np.float32)).cuda(),
+            torch.from_numpy(rng.integers(60, 770, (bsz, t)).astype(
+                np.int32)).cuda()))
+    rows, max_abs, max_rel = [], {}, 0.0
+    for (bsz, t), (s_pad, period) in zip(shapes, inputs):
+        checks = bench_comb.check(s_pad, period)
+        scale = comb.comb_ref(s_pad, period, 2400).abs().max().item()
+        rel = checks["v1_f32"]["max_abs_err"] / scale
+        require(bool(torch.isfinite(comb.comb_cuda(s_pad, period,
+                                                   2400)).all()),
+                f"comb finite at {bsz}x{t}")
         require(rel <= COMB_REL_TOL,
-                f"comb kernel vs plain at {bsz}x{t}: {rel:.3g} > "
+                f"comb v1 f32 vs plain at {bsz}x{t}: {rel:.3g} > "
                 f"{COMB_REL_TOL}")
-        bound, bound_by = comb_bound(bsz, t, n_pad)
-        row = {"B": bsz, "T": t, "max_abs_err": err, "max_rel_err": rel,
-               "ms": time_ms(lambda: comb.comb_cuda(s_pad, period, 2400)),
-               "plain_ms": time_ms(
-                   lambda: comb.comb_ref(s_pad, period, 2400)),
-               "bound_ms": bound, "bound_by": bound_by}
-        rows.append(row)
-        max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
-    emit("comb", tolerance_rel=COMB_REL_TOL, shapes=rows)
-    return {"rows": rows, "max_abs_err": max_abs, "max_rel_err": max_rel}
+        exact = {k: v for k, v in checks.items() if k != "v1_f32"}
+        require(bench_comb.all_exact(exact),
+                f"comb bf16 stores and v2 bit for bit at {bsz}x{t}: {checks}")
+        for k, v in checks.items():
+            if isinstance(v, dict):
+                max_abs[k] = max(max_abs.get(k, 0.0), v["max_abs_err"])
+        max_rel = max(max_rel, rel)
+        rows.append({"B": bsz, "T": t, "v1_f32_max_rel_err": rel,
+                     "checks": checks})
+    torch.cuda.synchronize()
+    comb.reset_launches()
+    for row, (s_pad, period) in zip(rows, inputs):
+        row["ms"] = bench_comb.time_variants(s_pad, period)
+    torch.cuda.synchronize()
+    rows_launches = comb.launches["rows_f32"] + comb.launches["rows_bf16"]
+    require(rows_launches > 0, "the bench path launched the v2 kernel")
+    emit("comb", tolerance_rel_v1_f32=COMB_REL_TOL,
+         v2_launches_in_bench=rows_launches, shapes=rows)
+    return {"rows": rows, "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "v2_launches": rows_launches}
 
 
 def batch_input(n_streams: int, n_frames: int,
@@ -159,10 +165,10 @@ def phase_batch(model_cpu, sig: np.ndarray) -> dict:
             model, sig, pipeline.init_pipeline_state(bsz), return_gr=True,
             **kw)
 
-    comb.launches = 0
+    comb.reset_launches()
     pcm, _, (g, r) = run()
     sync()
-    launches = comb.launches
+    launches = comb.launches["windows_f32"]
     require(launches > 0, "the batch main path launched the comb kernel")
     runs = []
     for _ in range(3):
@@ -212,22 +218,144 @@ def phase_batch(model_cpu, sig: np.ndarray) -> dict:
     return out
 
 
-def phase_serve(model_cpu, sig: np.ndarray) -> dict:
-    """StreamingServer ticks on the card against one batched
-    enhance_chunk there."""
+def quality_pairs(n_pairs: int, rng: np.random.Generator):
+    """featgen's clean/noisy pair plus seeded variants (gain and circular
+    shift, the same for both signals of a pair), [n_pairs, 96000] each at
+    raw int16 amplitude, the checkpoint's training scale."""
+    with np.load(FEATGEN) as g:
+        clean = g["clean16"].astype(np.float32)
+        noisy = g["noisy16"].astype(np.float32)
+    cs, ns = [clean], [noisy]
+    for _ in range(1, n_pairs):
+        gain = rng.uniform(0.3, 1.5)
+        shift = int(rng.integers(0, clean.size))
+        cs.append(gain * np.roll(clean, shift))
+        ns.append(gain * np.roll(noisy, shift))
+    return np.stack(cs), np.stack(ns)
+
+
+def quality(clean: np.ndarray, enhanced: np.ndarray,
+            align: bool = True) -> dict:
+    """STOI and SI-SDR of one stream against its clean reference, both at
+    raw int16 amplitude, as tools/quality_gate.py measures them: C-cast
+    to int16, /32768, and with `align` the enhancer's delay compensated
+    by the best SI-SDR of the candidate lags (cli/evaluate.evaluate_pair).
+    """
+    from percepnet_tpu_torch.utils import metrics
+
+    def pcm(x):
+        return np.trunc(np.clip(x, -32768, 32767)) / 32768.0
+    ref, enh = pcm(clean), pcm(enhanced)
+    if align:
+        lags = (0, 5 * 480, 6 * 480)
+        sdr = [metrics.si_sdr_db(ref[: enh.size - lag], enh[lag:])
+               for lag in lags]
+        enh = enh[lags[int(np.argmax(sdr))]:]
+    m = min(ref.size, enh.size)
+    return {"stoi": metrics.stoi(ref[:m], enh[:m]),
+            "si_sdr_db": metrics.si_sdr_db(ref[:m], enh[:m])}
+
+
+def phase_batch_bf16(model_cpu, clean: np.ndarray, noisy: np.ndarray,
+                     ) -> dict:
+    """The bf16 serving tier on the card: pitch periods against the f32
+    tier, g/r against the port's CPU bf16 run, and the bf16 vs f32
+    quality deltas."""
     import torch
     from percepnet_tpu_torch import pipeline
+    from percepnet_tpu_torch.features import frontend
     from percepnet_tpu_torch.ops import comb
-    from percepnet_tpu_torch.serve import StreamingServer
 
+    sync = torch.cuda.synchronize
+    bf16 = torch.bfloat16
     model = copy.deepcopy(model_cpu).to("cuda")
-    capacity = 64
+    model16 = copy.deepcopy(model).to(bf16)
+    bsz, n = noisy.shape
+    # the flush frames drain the lookahead, as cli/enhance does
+    sig = np.zeros((bsz, n + pipeline.flush_frames() * 480), np.float32)
+    sig[:, :n] = noisy
+
+    def run(m, dtype, dev="cuda"):
+        kw = {"compute_dtype": bf16} if dtype == bf16 else {}
+        out = pipeline.enhance_chunk(
+            m, sig, pipeline.init_pipeline_state(
+                bsz, model_dtype=dtype, device=dev),
+            return_gr=True, device=dev, log1p_features=True, **kw)
+        if dev == "cuda":
+            sync()
+        return out
+
+    comb.reset_launches()
+    pcm16, _, (g16, r16) = run(model16, bf16)
+    launches = comb.launches["windows_bf16"]
+    require(launches > 0, "the bf16 tier launched the bf16 comb kernel")
+    require(comb.launches["windows_f32"] == 0,
+            "the bf16 tier stores the comb in bf16 only")
+    pcm32, _, _ = run(model, torch.float32)
+    seconds = {}
+    for tag, m, dtype in (("f32", model, torch.float32),
+                          ("bf16", model16, bf16)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(m, dtype)
+            runs.append(time.perf_counter() - t0)
+        seconds[tag] = statistics.median(runs)
+    _, _, (g16c, r16c) = run(model_cpu, bf16, "cpu")
+    require(bool(torch.isfinite(pcm16).all()) and pcm16.shape == sig.shape
+            and pcm16.dtype == torch.float32, "bf16 PCM finite, [B, n], f32")
+    gr = {}
+    for k, a, b in (("g", g16, g16c), ("r", r16, r16c)):
+        d = (a.cpu() - b).abs()
+        gr[f"{k}_mean_abs"], gr[f"{k}_max_abs"] = d.mean().item(), \
+            d.max().item()
+
+    with torch.no_grad():
+        x = torch.from_numpy(sig).cuda()
+        f32_front, _ = frontend.analyze_batch(x)
+        bf16_front, _ = frontend.analyze_batch(x, serving=True)
+    mismatch = int((f32_front["period"] != bf16_front["period"]).sum())
+
+    t0 = time.perf_counter()
+    q = {}
+    streams = {"noisy": noisy}
+    for tag, pcm in (("f32", pcm32), ("bf16", pcm16)):
+        # the first output frame is dropped, as cli/enhance writes it
+        streams[tag] = pcm.cpu().numpy()[:, 480:n]
+    for tag, enh in streams.items():
+        rows = [quality(clean[i], enh[i], align=tag != "noisy")
+                for i in range(bsz)]
+        q[tag] = {k: float(np.mean([r[k] for r in rows]))
+                  for k in ("stoi", "si_sdr_db")}
+    quality_s = time.perf_counter() - t0
+    delta = {k: q["bf16"][k] - q["f32"][k] for k in ("stoi", "si_sdr_db")}
+    audio_s = bsz * n / 48000
+    out = {"pairs": bsz, "T": n // 480, "comb_bf16_launches": launches,
+           "seconds_median_of_3": seconds,
+           "audio_s_per_s": {k: audio_s / v for k, v in seconds.items()},
+           "pitch_mismatches_bf16_vs_f32": mismatch,
+           "gr_card_vs_cpu_bf16": gr, "quality": q, "bf16_delta": delta,
+           "quality_host_s": quality_s,
+           "bounds": {"gr_mean_abs": GR_BF16_MEAN_TOL, "stoi": DSTOI_TOL,
+                      "si_sdr_db": DSISDR_TOL}}
+    emit("batch_bf16", **out)
+    require(mismatch == 0, f"bf16 vs f32 pitch periods: {mismatch} differ")
+    require(max(gr["g_mean_abs"], gr["r_mean_abs"]) <= GR_BF16_MEAN_TOL,
+            f"bf16 g/r card vs CPU mean {gr}")
+    require(abs(delta["stoi"]) <= DSTOI_TOL
+            and abs(delta["si_sdr_db"]) <= DSISDR_TOL,
+            f"bf16 vs f32 quality deltas {delta}")
+    return out
+
+
+def run_ticks(srv, sig: np.ndarray) -> dict:
+    """Attach one stream per row of sig (samples in the server's wire
+    type), feed them one frame per tick, then the flush; returns the
+    slots, each stream's output, each tick's host time and the total."""
     n_streams, n = sig.shape
     n_ticks = n // 480
-    srv = StreamingServer(model, capacity=capacity, log1p_features=True)
     sids = [srv.attach() for _ in range(n_streams)]
     got = {sid: [] for sid in sids}
-    comb.launches = 0
     tick_s = []
     t0 = time.perf_counter()
     for t in range(n_ticks + srv.flush_frames()):
@@ -238,32 +366,111 @@ def phase_serve(model_cpu, sig: np.ndarray) -> dict:
         for sid, frame in srv.step().items():
             got[sid].append(frame)
         tick_s.append(time.perf_counter() - t1)
-    seconds = time.perf_counter() - t0
-    launches = comb.launches
-    require(launches > 0, "the serving main path launched the comb kernel")
-    total = n_ticks + srv.flush_frames()
+    return {"sids": sids, "got": {k: np.concatenate(v) for k, v in
+                                  got.items()},
+            "tick_s": tick_s, "seconds": time.perf_counter() - t0}
 
-    full = np.zeros((capacity, total * 480), np.float32)
-    for i, sid in enumerate(sids):
+
+def tick_stats(run: dict) -> dict:
+    ticks = len(run["tick_s"])
+    return {"ticks": ticks, "seconds": run["seconds"],
+            "ticks_per_s": ticks / run["seconds"],
+            "tick_ms_median": 1e3 * statistics.median(run["tick_s"]),
+            "tick_ms_p90": 1e3 * float(np.percentile(run["tick_s"], 90))}
+
+
+def phase_serve(model_cpu, sig: np.ndarray) -> dict:
+    """StreamingServer ticks on the card against one batched
+    enhance_chunk there."""
+    from percepnet_tpu_torch import pipeline
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.serve import StreamingServer
+
+    model = copy.deepcopy(model_cpu).to("cuda")
+    capacity = 64
+    n_streams, n = sig.shape
+    srv = StreamingServer(model, capacity=capacity, log1p_features=True)
+    comb.reset_launches()
+    res = run_ticks(srv, sig)
+    launches = comb.launches["windows_f32"]
+    require(launches > 0, "the serving main path launched the comb kernel")
+    stats = tick_stats(res)
+
+    full = np.zeros((capacity, stats["ticks"] * 480), np.float32)
+    for i, sid in enumerate(res["sids"]):
         full[sid, :n] = sig[i]
     ref, _ = pipeline.enhance_chunk(
         model, full, pipeline.init_pipeline_state(capacity),
         log1p_features=True)
     ref = ref.cpu().numpy()
-    err = float(max(np.abs(np.concatenate(got[sid]) - ref[sid]).max()
-                    for sid in sids))
-    peak = max(np.abs(ref[sid]).max() for sid in sids)
-    out = {"capacity": capacity, "streams": n_streams, "ticks": total,
-           "comb_launches": launches, "seconds": seconds,
-           "ticks_per_s": total / seconds,
-           "tick_ms_median": 1e3 * statistics.median(tick_s),
-           "tick_ms_p90": 1e3 * float(np.percentile(tick_s, 90)),
-           "max_err_vs_batch": err,
+    err = float(max(np.abs(res["got"][sid] - ref[sid]).max()
+                    for sid in res["sids"]))
+    peak = max(np.abs(ref[sid]).max() for sid in res["sids"])
+    out = {"capacity": capacity, "streams": n_streams,
+           "comb_launches": launches, **stats, "max_err_vs_batch": err,
            "output_peak": float(peak)}
     emit("serve", **out)
     require(np.isfinite(err) and err <= SERVE_ATOL,
             f"server vs batch {err:.3g} > {SERVE_ATOL}")
     require(peak > 0, "server output is not all zeros")
+    return out
+
+
+def phase_serve_bf16(model_cpu, sig: np.ndarray, f32: dict) -> dict:
+    """The bf16 server with int16 PCM on the wire against one batched bf16
+    enhance_chunk on the card, truncated to int16 alike."""
+    import torch
+    from percepnet_tpu_torch import pipeline
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.serve import StreamingServer
+
+    bf16 = torch.bfloat16
+    model = copy.deepcopy(model_cpu).to("cuda")
+    capacity = 64
+    n_streams, n = sig.shape
+    pcm16 = np.trunc(np.clip(sig * 32768.0, -32768, 32767)).astype(np.int16)
+    srv = StreamingServer(model, capacity=capacity, model_dtype=bf16,
+                          io_int16=True, log1p_features=True)
+    comb.reset_launches()
+    res = run_ticks(srv, pcm16)
+    launches = comb.launches["windows_bf16"]
+    require(launches > 0, "the bf16 server launched the bf16 comb kernel")
+    stats = tick_stats(res)
+
+    full = np.zeros((capacity, stats["ticks"] * 480), np.float32)
+    for i, sid in enumerate(res["sids"]):
+        full[sid, :n] = pcm16[i].astype(np.float32) / 32768.0
+    ref, _ = pipeline.enhance_chunk(
+        copy.deepcopy(model).to(bf16), full,
+        pipeline.init_pipeline_state(capacity, model_dtype=bf16),
+        compute_dtype=bf16, log1p_features=True)
+    ref = torch.clamp(ref * 32768.0, -32768.0, 32767.0).to(
+        torch.int16).cpu().numpy()
+    got = {sid: v for sid, v in res["got"].items()}
+    require(all(v.dtype == np.int16 for v in got.values()),
+            "the int16 wire returns int16")
+    diff = [np.abs(got[sid].astype(np.int32) - ref[sid]) for sid in got]
+    err = int(max(d.max() for d in diff))
+    peak = int(max(np.abs(ref[sid].astype(np.int32)).max() for sid in got))
+    corr = float(min(np.corrcoef(got[sid].astype(np.float64),
+                                 ref[sid].astype(np.float64))[0, 1]
+                     for sid in got))
+    out = {"capacity": capacity, "streams": n_streams,
+           "comb_bf16_launches": launches, **stats,
+           "max_err_vs_batch_lsb": err, "bound_lsb": SERVE_BF16_LSB,
+           "min_corr_bound": SERVE_BF16_MIN_CORR,
+           "mean_err_vs_batch_lsb": float(np.mean(np.concatenate(diff))),
+           "min_corr_vs_batch": corr, "output_peak_lsb": peak,
+           "f32_server": {k: f32[k] for k in ("ticks_per_s",
+                                              "tick_ms_median",
+                                              "tick_ms_p90")}}
+    emit("serve_bf16", **out)
+    require(err <= SERVE_BF16_LSB,
+            f"bf16 server vs batch {err} LSB > {SERVE_BF16_LSB}")
+    require(peak > 0, "bf16 server output is not all zeros")
+    require(corr >= SERVE_BF16_MIN_CORR,
+            f"bf16 server vs batch correlation {corr:.6f} < "
+            f"{SERVE_BF16_MIN_CORR}")
     return out
 
 
@@ -338,25 +545,46 @@ def main() -> int:
     model_cpu = load_params(CHECKPOINT)
     phase_batch(model_cpu, batch_input(16, 200, rng))
     serve_sig = batch_input(8, 100, rng)
+    phase_batch_bf16(model_cpu, *quality_pairs(
+        16, np.random.default_rng(20261018)))
     serve = phase_serve(model_cpu, serve_sig)
+    serve16 = phase_serve_bf16(model_cpu, serve_sig, serve)
     phase_profile(model_cpu, serve_sig, serve["tick_ms_median"])
 
     main_shape = comb_res["rows"][0]
-    kernel_line = {
-        "name": "comb_filter_windows", "route": "cuda",
-        "source": "percepnet_tpu_torch/csrc/comb.cu",
-        "replaces": "percepnet_tpu/ops/comb.py:252",
-        "replaces_function": "_comb_pallas (kernel body _comb_kernel, :69)",
-        "launches": serve["comb_launches"],
-        "max_abs_err": comb_res["max_abs_err"],
-        "max_rel_err": comb_res["max_rel_err"],
-        "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None,
-        "shape": [main_shape["B"], main_shape["T"]],
-    }
-    print(json.dumps({"kernels": [kernel_line]}), flush=True)
+    ms = main_shape["ms"]
+
+    def entry(name, source, replaces, function, launches, variant, store):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "replaces_function": function,
+            "launches": launches,
+            "max_abs_err": comb_res["max_abs_err"][f"{variant}_{store}"],
+            "ms": ms[f"{variant}_{store}"],
+            "plain_ms": ms[f"plain_{store}"],
+            "bound_ms": ms[f"bound_{store}"], "bound_by": ms["bound_by"],
+            "library_ms": None, "store": store,
+            "shape": [main_shape["B"], main_shape["T"]]}
+
+    b1 = ("percepnet_tpu_torch/csrc/comb.cu", "percepnet_tpu/ops/comb.py:252",
+          "_comb_pallas (kernel body _comb_kernel, :69)")
+    kernel_lines = [
+        entry("comb_filter_windows", *b1, serve["comb_launches"], "v1",
+              "f32"),
+        entry("comb_filter_windows_bf16", *b1,
+              serve16["comb_bf16_launches"], "v1", "bf16"),
+        entry("comb_filter_windows_rows", "percepnet_tpu_torch/csrc/"
+              "comb_rows.cu", "percepnet_tpu/ops/comb.py:202",
+              "_comb_pallas_v2 (kernel body _comb_kernel_v2, :135)",
+              comb_res["v2_launches"], "v2", "f32"),
+    ]
+    kernel_lines[0]["max_rel_err"] = comb_res["max_rel_err"]
+    kernel_lines[2].update(
+        ms_bf16=ms["v2_bf16"], plain_ms_bf16=ms["plain_bf16"],
+        bound_ms_bf16=ms["bound_bf16"],
+        max_abs_err_bf16=comb_res["max_abs_err"]["v2_bf16"],
+        launches_path="percepnet_tpu_torch.bench_comb (never dispatched)")
+    print(json.dumps({"kernels": kernel_lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -36,15 +36,20 @@ def apply_gains(xr, xi, g):
 
 
 def synthesize(xr: torch.Tensor, xi: torch.Tensor,
-               synthesis_mem: torch.Tensor | None = None):
+               synthesis_mem: torch.Tensor | None = None,
+               serving: bool = False):
     """Windowed inverse DFT + 50% overlap-add (denoise.cpp:352-359).
 
     Args:
       xr, xi: [B, T, 481] enhanced spectra.
       synthesis_mem: optional [B, 480] carry from the previous chunk.
+      serving: the bf16 serving tier: the spectra enter the inverse DFT
+        as bf16, with an f32 result (ops.dft).
     Returns:
-      (pcm [B, T*480], new_mem [B, 480]).
+      (pcm [B, T*480] f32, new_mem [B, 480]).
     """
+    if serving:
+        xr, xi = xr.to(torch.bfloat16), xi.to(torch.bfloat16)
     x = window.apply_window(dft.inverse_dft(xr, xi))   # [B, T, 960]
     first, second = x[..., : C.FRAME_SIZE], x[..., C.FRAME_SIZE :]
     if synthesis_mem is None:
@@ -55,17 +60,19 @@ def synthesize(xr: torch.Tensor, xi: torch.Tensor,
 
 
 def enhance_spectra(front: dict, g: torch.Tensor, r: torch.Tensor,
-                    synthesis_mem: torch.Tensor | None = None):
+                    synthesis_mem: torch.Tensor | None = None,
+                    serving: bool = False):
     """Pitch filter -> band gains -> OLA synthesis.
 
     Args:
       front: features.frontend.analyze_batch output (xr, xi, pr, pi,
         silence).
       g, r: [B, T, 34] gains and strengths (model output or oracle labels).
+      serving: the bf16 inverse DFT (see synthesize).
     Returns:
       (pcm [B, T*480], new_synthesis_mem [B, 480]).
     """
     xr, xi = pitch_filter(front["xr"], front["xi"], front["pr"], front["pi"],
                           r, front["silence"])
     xr, xi = apply_gains(xr, xi, g)
-    return synthesize(xr, xi, synthesis_mem)
+    return synthesize(xr, xi, synthesis_mem, serving=serving)

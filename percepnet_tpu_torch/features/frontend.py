@@ -53,7 +53,7 @@ def init_state(batch: int, device: torch.device) -> FrontendState:
 
 
 def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
-                  *, impl: str | None = None):
+                  *, serving: bool = False, impl: str | None = None):
     """Analyze a batch of chunks; returns per-frame features and spectra.
 
     Args:
@@ -61,6 +61,12 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
         on the device the analysis runs on.  /32768 scale for inference
         (main.cpp:34).
       state: streaming carry (None = fresh DenoiseState zeros).
+      serving: the bf16 serving tier: the windowed frames and the comb
+        output (stored bf16 by the kernel) enter the DFT as bf16, with f32
+        spectra out (ops.dft).  The pitch search stays f32: the JAX
+        package's bf16 pitch contractions exist only in its TPU layouts,
+        and its CPU tier, which the port follows, ignores them, so the
+        periods equal the f32 tier's.  Default False: the parity path.
       impl: 'ref' / 'cuda' tier for the comb filter; None takes the tier
         of signal's device (ops.dispatch).
 
@@ -90,7 +96,10 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
     # the analysis window of frame t+5, so ONE pass over T+5 frames gives
     # both the X spectra (rows :T) and the lookahead energies (rows 5:).
     frames = s_pad[:, _X_OFF:].unfold(-1, C.WINDOW_SIZE, C.FRAME_SIZE)
-    xr_ext, xi_ext = dft.forward_dft(window.apply_window(frames))
+    xw = window.apply_window(frames)
+    if serving:
+        xw = xw.to(torch.bfloat16)
+    xr_ext, xi_ext = dft.forward_dft(xw)
     ex_ext = bands.band_energy(xr_ext, xi_ext)
     xr, xi = xr_ext[:, :n_frames], xi_ext[:, :n_frames]
     ex = ex_ext[:, :n_frames]
@@ -101,7 +110,10 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
     period = track["period"]
 
     # --- comb filter (CUDA kernel on the card; window applied inside) ----
-    pw = comb.comb_filter_windows_batch(s_pad, period, _X_OFF, impl=impl)
+    # serving tier: the kernel stores bf16, the DFT's operand type
+    pw = comb.comb_filter_windows_batch(
+        s_pad, period, _X_OFF,
+        out_dtype=torch.bfloat16 if serving else torch.float32, impl=impl)
     pr, pi = dft.forward_dft(pw)
     ep = bands.band_energy(pr, pi)
     exp_raw = bands.band_corr(xr, xi, pr, pi)

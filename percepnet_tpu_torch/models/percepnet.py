@@ -9,7 +9,8 @@ Architecture (mirrors rnn_train.py:105-145 / rnn.cpp:42-81):
   gru_rb:  GRU(1024 -> 128)           (input: [gru3, conv2] concat)
   fc_gb:   Linear(2560 -> 34) + Sigmoid  on [conv2, gru1..3, gru_gb]
   fc_rb:   Linear(128 -> 34)  + Sigmoid  on gru_rb
-  ~7.96 M parameters, f32.
+  ~7.96 M parameters, f32.  The bf16 serving tier (compute_dtype) runs
+  them, the features and the recurrence in bf16.
 
 Parameters keep the JAX package's names and layouts ([in, out] weights,
 GRU gates in PyTorch's r, z, n order), so `io.flat_npz.params_from_flat`
@@ -84,9 +85,11 @@ class ModelState(NamedTuple):
     h_rb: torch.Tensor        # [B, 128]
 
 
-def init_model_state(batch: int, device: torch.device) -> ModelState:
+def init_model_state(batch: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> ModelState:
+    """Zero state; dtype is the forward pass's compute_dtype (f32 default)."""
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     return ModelState(
         conv1_mem=z(batch, C.CONV1_KERNEL - 1, C.FC_DIM),
         conv2_mem=z(batch, C.CONV2_KERNEL - 1, C.CONV_DIM),
@@ -156,60 +159,75 @@ class PercepNet(nn.Module):
     def forward(self, features: torch.Tensor, state: ModelState | None = None,
                 *, act_tanh: Callable = torch.tanh,
                 act_sigmoid: Callable = torch.sigmoid,
-                log1p_features: bool = False):
+                log1p_features: bool = False,
+                compute_dtype: torch.dtype | None = None):
         """Whole-sequence forward pass.
 
         Args:
           features: [B, T, 70] f32 model input (already x30-scaled).
-          state: streaming ModelState (None = zeros).
+          state: streaming ModelState (None = zeros), in compute_dtype.
           act_tanh, act_sigmoid: exact (default) or the C tables
             (ops.activations.tansig_approx / sigmoid_approx).
-          log1p_features: apply compress_features at the model input.
+          log1p_features: apply compress_features at the model input (in
+            f32, before any cast).
+          compute_dtype: the serving dtype (torch.bfloat16): parameters,
+            features and the recurrence run in it; both heads' sigmoids
+            take their logits in f32.  Parameters are cast per call
+            unless the module already holds that dtype (the server keeps
+            a bf16 copy).  None: f32.
         Returns:
-          (g [B, T, 34], r [B, T, 34], new_state)
+          (g [B, T, 34] f32, r [B, T, 34] f32, new_state)
         """
+        dtype = compute_dtype or torch.float32
         b, t, _ = features.shape
         if log1p_features:
             features = compress_features(features)
         if state is None:
-            state = init_model_state(b, features.device)
+            state = init_model_state(b, features.device, dtype)
+        elif state.h1.dtype != dtype:
+            raise ValueError(f"state is {state.h1.dtype}, the pass runs in "
+                             f"{dtype}: init_model_state(..., dtype) must "
+                             f"match compute_dtype")
+        features = features.to(dtype)
+        p = {layer: {leaf: v.to(dtype) for leaf, v in
+                     getattr(self, layer).items()} for layer in LAYERS}
 
-        x = torch.relu(torch.matmul(features, self.fc["w"]) + self.fc["b"])
-        c1, c1_mem = _causal_conv(self.conv1, x, state.conv1_mem, torch.relu)
-        conv_out, c2_mem = _causal_conv(self.conv2, c1, state.conv2_mem,
+        x = torch.relu(torch.matmul(features, p["fc"]["w"]) + p["fc"]["b"])
+        c1, c1_mem = _causal_conv(p["conv1"], x, state.conv1_mem, torch.relu)
+        conv_out, c2_mem = _causal_conv(p["conv2"], c1, state.conv2_mem,
                                         act_tanh)
 
         # state-independent input projections, hoisted out of the loop
-        pre1 = _project(self.gru1, conv_out)                     # [B,T,1536]
-        wi_rb = self.gru_rb["wi"]
-        pre_rb_conv = torch.matmul(conv_out, wi_rb[_G:]) + self.gru_rb["bi"]
+        pre1 = _project(p["gru1"], conv_out)                     # [B,T,1536]
+        wi_rb = p["gru_rb"]["wi"]
+        pre_rb_conv = torch.matmul(conv_out, wi_rb[_G:]) + p["gru_rb"]["bi"]
 
         h1, h2, h3, hgb, hrb = (state.h1, state.h2, state.h3, state.h_gb,
                                 state.h_rb)
         seqs = ([], [], [], [], [])
         for i in range(t):
-            h1 = _gru_cell(self.gru1, h1, pre1[:, i], act_sigmoid, act_tanh)
-            h2 = _gru_cell(self.gru2, h2, _project(self.gru2, h1),
+            h1 = _gru_cell(p["gru1"], h1, pre1[:, i], act_sigmoid, act_tanh)
+            h2 = _gru_cell(p["gru2"], h2, _project(p["gru2"], h1),
                            act_sigmoid, act_tanh)
-            h3 = _gru_cell(self.gru3, h3, _project(self.gru3, h2),
+            h3 = _gru_cell(p["gru3"], h3, _project(p["gru3"], h2),
                            act_sigmoid, act_tanh)
-            hgb = _gru_cell(self.gru_gb, hgb, _project(self.gru_gb, h3),
+            hgb = _gru_cell(p["gru_gb"], hgb, _project(p["gru_gb"], h3),
                             act_sigmoid, act_tanh)
             prb = pre_rb_conv[:, i] + torch.matmul(h3, wi_rb[:_G])
-            hrb = _gru_cell(self.gru_rb, hrb, prb, act_sigmoid, act_tanh)
+            hrb = _gru_cell(p["gru_rb"], hrb, prb, act_sigmoid, act_tanh)
             for seq, h in zip(seqs, (h1, h2, h3, hgb, hrb)):
                 seq.append(h)
         h1s, h2s, h3s, hgbs, hrbs = (torch.stack(s, dim=1) for s in seqs)
 
-        w_gb = self.fc_gb["w"]
+        w_gb = p["fc_gb"]["w"]
         gb_logits = (torch.matmul(conv_out, w_gb[:_D])
                      + torch.matmul(h1s, w_gb[_D : 2 * _D])
                      + torch.matmul(h2s, w_gb[2 * _D : 3 * _D])
                      + torch.matmul(h3s, w_gb[3 * _D : 4 * _D])
                      + torch.matmul(hgbs, w_gb[4 * _D :])
-                     + self.fc_gb["b"])
-        gains = act_sigmoid(gb_logits)
-        strengths = act_sigmoid(torch.matmul(hrbs, self.fc_rb["w"])
-                                + self.fc_rb["b"])
+                     + p["fc_gb"]["b"])
+        rb_logits = torch.matmul(hrbs, p["fc_rb"]["w"]) + p["fc_rb"]["b"]
+        gains = act_sigmoid(gb_logits.to(torch.float32))
+        strengths = act_sigmoid(rb_logits.to(torch.float32))
         new_state = ModelState(c1_mem, c2_mem, h1, h2, h3, hgb, hrb)
         return gains, strengths, new_state

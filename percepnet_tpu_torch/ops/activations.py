@@ -15,7 +15,8 @@ def tansig_approx(x: torch.Tensor) -> torch.Tensor:
     """Table-based tanh matching vec.h:53-70 (tansig_approx).
 
     i = clip(floor(.5 + 25|x|), 0, 200); dx = |x| - .04i; y = T[i];
-    y += dx*(1-y^2)*(1 - y*dx); the result takes x's sign.
+    y += dx*(1-y^2)*(1 - y*dx); the result takes x's sign.  Computed in
+    f32 (the table's type) and returned in x's dtype, as torch.tanh is.
     """
     table = C.device_table(C.tansig_table, x.device)
     sign = torch.sign(x)
@@ -25,7 +26,7 @@ def tansig_approx(x: torch.Tensor) -> torch.Tensor:
     y = table[i]
     dy = 1.0 - y * y
     y = y + dx * dy * (1.0 - y * dx)
-    return sign * y
+    return (sign * y).to(x.dtype)
 
 
 def sigmoid_approx(x: torch.Tensor) -> torch.Tensor:

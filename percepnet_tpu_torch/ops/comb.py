@@ -5,16 +5,22 @@ window from its ring buffer (denoise.cpp:419-422), weighted by the
 normalized Hann comb window (denoise.cpp:200-206).  The shifts depend on
 each frame's pitch period, so the work is a data-dependent gather.
 
-Two implementations of one function:
-  comb_ref   plain PyTorch: 7 gathers, accumulated in tap order k=0..6,
-             window multiply last (the JAX package's _comb_gather).
-  comb_cuda  the hand-written kernel csrc/comb.cu, which replaces the TPU
-             kernel percepnet_tpu/ops/comb.py:_comb_pallas.  It rounds
-             exactly as comb_ref does.
+Three implementations of one function, each storing f32 or (the bf16
+serving tier) bf16 rounded once from the f32 value:
+  comb_ref        plain PyTorch: 7 gathers, accumulated in tap order
+                  k=0..6, window multiply last (the JAX package's
+                  _comb_gather), then the cast.
+  comb_cuda       the hand-written kernel csrc/comb.cu, which replaces the
+                  TPU kernel percepnet_tpu/ops/comb.py:_comb_pallas.  It
+                  rounds exactly as comb_ref does.
+  comb_cuda_rows  csrc/comb_rows.cu, which replaces _comb_pallas_v2: the
+                  same function with a row-layout store ([B, T, 1024],
+                  returned as its [..., :960] view).  As in the JAX
+                  package it is never dispatched; bench_comb reaches it.
 
 `comb_filter_windows_batch` takes comb_ref for tensors on the CPU and
-launches the kernel for tensors on the card; `launches` counts the
-kernel's launches.
+launches comb_cuda for tensors on the card.  `launches` counts each
+kernel entry point's launches.
 """
 
 from __future__ import annotations
@@ -25,11 +31,22 @@ from percepnet_tpu_torch import constants as C
 from percepnet_tpu_torch.ops import kernels
 from percepnet_tpu_torch.ops.dispatch import resolve_impl
 
-# Kernel launches since the count was last set to 0 (by a caller that
-# wants to know whether a run went through the kernel).
-launches = 0
+ROW_LEN = 1024                   # comb_cuda_rows' padded row: 8 x 128
+
+_STORES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+# Launches of each kernel entry point ("windows_f32", "windows_bf16",
+# "rows_f32", "rows_bf16") since reset_launches(), for a caller that wants
+# to know whether a run went through a kernel.
+launches = {f"{layout}_{store}": 0 for layout in ("windows", "rows")
+            for store in _STORES.values()}
 
 _MAX_GRID_Y = 65535
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
 
 
 def _check_inputs(s_pad: torch.Tensor, period: torch.Tensor,
@@ -51,9 +68,10 @@ def _check_inputs(s_pad: torch.Tensor, period: torch.Tensor,
         raise ValueError("s_pad and period must be on one device")
 
 
-def comb_ref(s_pad: torch.Tensor, period: torch.Tensor,
-             x_offset: int) -> torch.Tensor:
-    """Plain PyTorch version: [B, n_pad], [B, T] -> [B, T, 960] f32."""
+def comb_ref(s_pad: torch.Tensor, period: torch.Tensor, x_offset: int,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: [B, n_pad], [B, T] -> [B, T, 960], computed
+    in f32 and cast to out_dtype."""
     _check_inputs(s_pad, period, x_offset)
     bsz, t = period.shape
     dev = s_pad.device
@@ -68,49 +86,70 @@ def comb_ref(s_pad: torch.Tensor, period: torch.Tensor,
         idx = base - p * (kk - C.COMB_M)                          # [B, T, 960]
         tap = torch.gather(s, 1, idx.reshape(bsz, -1)).reshape(idx.shape)
         acc = acc + w[kk] * tap
-    return acc * C.device_table(C.full_window, dev)
+    return (acc * C.device_table(C.full_window, dev)).to(out_dtype)
 
 
-def comb_cuda(s_pad: torch.Tensor, period: torch.Tensor,
-              x_offset: int) -> torch.Tensor:
-    """The CUDA kernel: s_pad f32 [B, n_pad] and period int32 [B, T],
-    both contiguous on the card -> [B, T, 960] f32.  A frame whose
-    period reaches outside s_pad comes out as NaN."""
-    global launches
+def _launch(layout: str, width: int, s_pad: torch.Tensor,
+            period: torch.Tensor, x_offset: int,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """Check the inputs, allocate [B, T, width] and launch the entry point
+    percepnet_comb_{layout}_{f32|bf16} on the current stream."""
     _check_inputs(s_pad, period, x_offset)
     if s_pad.device.type != "cuda":
-        raise ValueError(f"comb_cuda needs tensors on the card, got "
+        raise ValueError(f"the comb kernels need tensors on the card, got "
                          f"{s_pad.device}")
     if s_pad.dtype != torch.float32 or period.dtype != torch.int32:
-        raise TypeError(f"comb_cuda takes f32 s_pad and int32 period, got "
-                        f"{s_pad.dtype} and {period.dtype}")
+        raise TypeError(f"the comb kernels take f32 s_pad and int32 period, "
+                        f"got {s_pad.dtype} and {period.dtype}")
+    if out_dtype not in _STORES:
+        raise TypeError(f"the comb kernels store f32 or bf16, not "
+                        f"{out_dtype}")
     if not (s_pad.is_contiguous() and period.is_contiguous()):
-        raise ValueError("comb_cuda takes contiguous s_pad and period")
+        raise ValueError("the comb kernels take contiguous s_pad and period")
     bsz, t = period.shape
     if bsz > _MAX_GRID_Y:
         raise ValueError(f"batch {bsz} exceeds the kernel's grid limit "
                          f"{_MAX_GRID_Y}")
-    out = torch.empty((bsz, t, C.WINDOW_SIZE), dtype=torch.float32,
-                      device=s_pad.device)
+    out = torch.empty((bsz, t, width), dtype=out_dtype, device=s_pad.device)
     if bsz == 0 or t == 0:
         return out
+    name = f"{layout}_{_STORES[out_dtype]}"
     taps = C.device_table(C.comb_hann_window, s_pad.device)
     window = C.device_table(C.full_window, s_pad.device)
-    lib = kernels.library()
+    entry = getattr(kernels.library(), f"percepnet_comb_{name}")
     with torch.cuda.device(s_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.percepnet_comb_windows_f32(
-            s_pad.data_ptr(), period.data_ptr(), taps.data_ptr(),
-            window.data_ptr(), out.data_ptr(), bsz, t, s_pad.shape[1],
-            x_offset, stream)
+        err = entry(s_pad.data_ptr(), period.data_ptr(), taps.data_ptr(),
+                    window.data_ptr(), out.data_ptr(), bsz, t,
+                    s_pad.shape[1], x_offset, stream)
     if err != 0:
-        raise RuntimeError(f"comb kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"comb kernel {name} launch failed: CUDA error "
+                           f"{err}")
+    launches[name] += 1
     return out
+
+
+def comb_cuda(s_pad: torch.Tensor, period: torch.Tensor, x_offset: int,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The CUDA kernel: s_pad f32 [B, n_pad] and period int32 [B, T],
+    both contiguous on the card -> [B, T, 960] f32 or bf16.  A frame
+    whose period reaches outside s_pad comes out as NaN."""
+    return _launch("windows", C.WINDOW_SIZE, s_pad, period, x_offset,
+                   out_dtype)
+
+
+def comb_cuda_rows(s_pad: torch.Tensor, period: torch.Tensor, x_offset: int,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The row-layout CUDA kernel: takes what comb_cuda takes and returns
+    the [B, T, :960] view of its [B, T, 1024] rows (960..1023 are zero),
+    equal to comb_cuda's output bit for bit."""
+    return _launch("rows", ROW_LEN, s_pad, period, x_offset,
+                   out_dtype)[..., : C.WINDOW_SIZE]
 
 
 def comb_filter_windows_batch(s_pad: torch.Tensor, period: torch.Tensor,
                               x_offset: int,
+                              out_dtype: torch.dtype = torch.float32,
                               impl: str | None = None) -> torch.Tensor:
     """[B, T, WINDOW_SIZE] analysis-windowed comb outputs for a batch.
 
@@ -123,10 +162,11 @@ def comb_filter_windows_batch(s_pad: torch.Tensor, period: torch.Tensor,
       period: [B, T] int32 pitch period per frame (60..769 after
         remove_doubling).
       x_offset: padded-sample offset of the analysis window (2400).
+      out_dtype: the store type: f32, or bf16 for the serving tier (the
+        sum stays f32; the bf16 value is its rounding).
       impl: 'ref' / 'cuda' tier; None takes the tier of the tensors'
-        device (ops.dispatch).  The bf16 store of the serving tier is not
-        ported yet.
+        device (ops.dispatch).
     """
     if resolve_impl(impl, s_pad.device) == "cuda":
-        return comb_cuda(s_pad, period, x_offset)
-    return comb_ref(s_pad, period, x_offset)
+        return comb_cuda(s_pad, period, x_offset, out_dtype)
+    return comb_ref(s_pad, period, x_offset, out_dtype)

@@ -28,8 +28,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures of the C entry points: pointers and the stream as
 # c_void_p (a plain int would be cut to 32 bits), ints as c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_COMB = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "percepnet_comb_windows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "percepnet_comb_windows_f32": _COMB,
+    "percepnet_comb_windows_bf16": _COMB,
+    "percepnet_comb_rows_f32": _COMB,
+    "percepnet_comb_rows_bf16": _COMB,
 }
 
 

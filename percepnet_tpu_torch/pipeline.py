@@ -39,14 +39,18 @@ class PipelineState(NamedTuple):
 
 
 def init_pipeline_state(batch: int = 1, *,
+                        model_dtype: torch.dtype = torch.float32,
                         device: str | torch.device | None = None
                         ) -> PipelineState:
     """Fresh zero state for `batch` independent streams on `device` (the
-    card unless device='cpu')."""
+    card unless device='cpu').
+
+    model_dtype: dtype of the carried NN state; pass torch.bfloat16 when
+    serving with enhance_chunk(compute_dtype=torch.bfloat16)."""
     dev = resolve_device(device)
     return PipelineState(
         front=frontend.init_state(batch, dev),
-        model=percepnet.init_model_state(batch, dev),
+        model=percepnet.init_model_state(batch, dev, model_dtype),
         synthesis_mem=torch.zeros((batch, C.FRAME_SIZE), dtype=torch.float32,
                                   device=dev))
 
@@ -75,7 +79,12 @@ def enhance_chunk(model: percepnet.PercepNet, signal, state: PipelineState,
       impl: 'ref' / 'cuda' op tier; None takes the device's (ops.dispatch).
       device: where the call runs: the card unless 'cpu'.
       model_kw: forwarded to PercepNet.forward (compat activations,
-        log1p_features).
+        log1p_features, compute_dtype).  compute_dtype=torch.bfloat16
+        selects the bf16 serving tier for the whole call: bf16 DFT
+        operands with f32 spectra, the comb kernel's bf16 store, the bf16
+        model and recurrence (pair it with init_pipeline_state(...,
+        model_dtype=torch.bfloat16)) and the bf16 inverse DFT.  Any other
+        compute_dtype, float32 included, stays on the parity path.
 
     Returns:
       (pcm [B, n_samples], new_state), plus (g, r) [B, T, 34] each when
@@ -89,9 +98,12 @@ def enhance_chunk(model: percepnet.PercepNet, signal, state: PipelineState,
     if isinstance(signal, np.ndarray):
         signal = torch.from_numpy(signal)
     signal = signal.to(device=dev, dtype=torch.float32)
-    front, fstate = frontend.analyze_batch(signal, state.front, impl=impl)
+    serving = model_kw.get("compute_dtype") == torch.bfloat16
+    front, fstate = frontend.analyze_batch(signal, state.front,
+                                           serving=serving, impl=impl)
     g, r, mstate = model(front["features"], state.model, **model_kw)
-    pcm, mem = enhance.enhance_spectra(front, g, r, state.synthesis_mem)
+    pcm, mem = enhance.enhance_spectra(front, g, r, state.synthesis_mem,
+                                       serving=serving)
     new_state = PipelineState(fstate, mstate, mem)
     if return_gr:
         return pcm, new_state, (g, r)
@@ -108,8 +120,11 @@ def enhance_utterance(model: percepnet.PercepNet, signal, *,
     dev = resolve_device(device)
     if isinstance(signal, np.ndarray):
         signal = torch.from_numpy(signal)
-    pcm, _ = enhance_chunk(model, signal[None], init_pipeline_state(
-        1, device=dev), device=dev, **model_kw)
+    state = init_pipeline_state(
+        1, model_dtype=model_kw.get("compute_dtype") or torch.float32,
+        device=dev)
+    pcm, _ = enhance_chunk(model, signal[None], state, device=dev,
+                           **model_kw)
     return pcm[0]
 
 

@@ -16,9 +16,15 @@ Usage:
 
 With frames_per_tick=N, `submit` stages N*480 samples per stream and
 `step` returns N frames per stream, in one batched call.
+
+The bf16 serving tier, with int16 PCM on the wire:
+    srv = StreamingServer(model, capacity=64, model_dtype=torch.bfloat16,
+                          io_int16=True, log1p_features=True)
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -48,34 +54,48 @@ class StreamingServer:
           input compression (models.percepnet.compress_features).
         frames_per_tick: frames advanced per `step()`; adds
           frames_per_tick*10 ms of buffering latency.
+        model_dtype: torch.bfloat16 serves the bf16 tier
+          (pipeline.enhance_chunk(compute_dtype=...)) from the server's
+          own bf16 copy of the model, with the carried state in bf16;
+          None or torch.float32 serves f32.
+        io_int16: audio crosses between host and card as int16 PCM:
+          submit takes raw int16 samples and step returns int16.  The
+          /32768 scaling and the C-cast truncation of the output (clip to
+          the int16 range, round toward zero) happen on the device.
         device: the card unless 'cpu'.
-        mesh, model_dtype, io_int16: not ported yet; each raises
+        mesh: not ported yet (it needs several cards); raises
           NotImplementedError when given.
         """
-        for name, given in (("mesh", mesh is not None),
-                            ("model_dtype", model_dtype is not None),
-                            ("io_int16", io_int16)):
-            if given:
-                raise NotImplementedError(
-                    f"StreamingServer({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "StreamingServer(mesh=...) is not ported yet")
+        if model_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"model_dtype must be None, torch.float32 or "
+                             f"torch.bfloat16, got {model_dtype!r}")
         if frames_per_tick < 1:
             raise ValueError(f"frames_per_tick must be >= 1, got "
                              f"{frames_per_tick}")
         self.device = resolve_device(device)
         self.capacity = capacity
         self.frames_per_tick = frames_per_tick
-        self.model = model
+        self.model_dtype = model_dtype or torch.float32
+        self.io_int16 = io_int16
         self._kw: dict = {"impl": resolve_impl(None, self.device),
                           "log1p_features": log1p_features}
         if compat:
             self._kw.update(act_tanh=tansig_approx,
                             act_sigmoid=sigmoid_approx)
-        self._state = pipeline.init_pipeline_state(capacity,
-                                                   device=self.device)
+        if self.model_dtype == torch.bfloat16:
+            # cast once here, so that no tick pays for it
+            model = copy.deepcopy(model).to(self.model_dtype)
+            self._kw["compute_dtype"] = self.model_dtype
+        self.model = model
+        self._state = pipeline.init_pipeline_state(
+            capacity, model_dtype=self.model_dtype, device=self.device)
         self._free = list(range(capacity))[::-1]
         self._active: set[int] = set()
         self._inbuf = np.zeros((capacity, frames_per_tick * C.FRAME_SIZE),
-                               np.float32)
+                               np.int16 if io_int16 else np.float32)
 
     # --- stream lifecycle -------------------------------------------------
     def attach(self) -> int:
@@ -101,25 +121,33 @@ class StreamingServer:
 
     # --- ticking ----------------------------------------------------------
     def submit(self, sid: int, frame: np.ndarray) -> None:
-        """Stage one tick of audio: frames_per_tick*480 float samples at
-        /32768 scale; shorter submissions are zero-padded."""
+        """Stage one tick of audio: frames_per_tick*480 samples, float at
+        /32768 scale, or raw int16 PCM when io_int16; shorter submissions
+        are zero-padded."""
         if sid not in self._active:
             raise KeyError(f"stream {sid} is not attached")
         n = self._inbuf.shape[1]
-        frame = np.asarray(frame, np.float32)[:n]
+        frame = np.asarray(frame, self._inbuf.dtype)[:n]
         self._inbuf[sid, : len(frame)] = frame
         self._inbuf[sid, len(frame):] = 0.0
 
     def step(self) -> dict[int, np.ndarray]:
         """Advance every stream frames_per_tick frames in one batched
-        call; returns {sid: enhanced samples [frames_per_tick*480]}.
+        call; returns {sid: enhanced samples [frames_per_tick*480]}, f32
+        or, with io_int16, int16.
 
         Slots without a submitted frame step on silence (their state still
         advances, like a dropped packet).
         """
+        signal = torch.from_numpy(self._inbuf).to(self.device)
+        if self.io_int16:
+            signal = signal.to(torch.float32) * (1.0 / 32768.0)
         pcm, self._state = pipeline.enhance_chunk(
-            self.model, self._inbuf, self._state, device=self.device,
-            **self._kw)
+            self.model, signal, self._state, device=self.device, **self._kw)
+        if self.io_int16:
+            # the C cast: float -> int truncates toward zero in torch too
+            pcm = torch.clamp(pcm * 32768.0, -32768.0, 32767.0).to(
+                torch.int16)
         self._inbuf[:] = 0.0
         out = pcm.cpu().numpy()
         return {sid: out[sid] for sid in self._active}

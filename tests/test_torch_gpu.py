@@ -50,12 +50,47 @@ def test_comb_kernel_matches_plain_version(cuda, bsz, t):
     """The kernel rounds as the plain version does: equal to 1e-6 of the
     output's scale (bit for bit in practice)."""
     s, p = _comb_inputs(bsz, t, bsz + t, cuda)
-    before = comb.launches
+    before = comb.launches["windows_f32"]
     got = comb.comb_filter_windows_batch(s, p, 2400)
     torch.cuda.synchronize()
-    assert comb.launches == before + 1
+    assert comb.launches["windows_f32"] == before + 1
     ref = comb.comb_ref(s, p, 2400)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-6
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int16 if x.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+@pytest.mark.parametrize("bsz,t", [(64, 100), (64, 1), (3, 37)])
+def test_comb_bf16_store_is_rounded_plain_version(cuda, bsz, t):
+    """The bf16 store equals comb_ref(..., bf16) bit for bit (the property
+    check_tpu.py check 1 pins on the TPU)."""
+    s, p = _comb_inputs(bsz, t, bsz + t, cuda)
+    before = comb.launches["windows_bf16"]
+    got = comb.comb_filter_windows_batch(s, p, 2400,
+                                         out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert comb.launches["windows_bf16"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (bsz, t, 960)
+    ref = comb.comb_ref(s, p, 2400, torch.bfloat16)
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("bsz,t", [(64, 100), (64, 1), (3, 37)])
+def test_comb_rows_kernel_equals_v1_bit_for_bit(cuda, bsz, t):
+    """v2 (row layout): f32 == v1 f32 and bf16 == rn(its own f32), bit
+    for bit; the padded row's tail is zero."""
+    s, p = _comb_inputs(bsz, t, bsz + t, cuda)
+    v1 = comb.comb_cuda(s, p, 2400)
+    v2 = comb.comb_cuda_rows(s, p, 2400)
+    v2_16 = comb.comb_cuda_rows(s, p, 2400, torch.bfloat16)
+    assert v2.shape == (bsz, t, 960) and v2.stride()[1] == comb.ROW_LEN
+    assert torch.equal(_bits(v2), _bits(v1))
+    assert torch.equal(_bits(v2_16), _bits(v2.to(torch.bfloat16)))
+    rows = v2_16.as_strided((bsz, t, comb.ROW_LEN), v2_16.stride())
+    assert not rows[..., 960:].abs().max().item()
 
 
 def test_comb_kernel_rejects_what_it_does_not_take(cuda):
@@ -66,6 +101,8 @@ def test_comb_kernel_rejects_what_it_does_not_take(cuda):
         comb.comb_cuda(s, p.long(), 2400)
     with pytest.raises(ValueError):
         comb.comb_cuda(s.t().contiguous().t(), p, 2400)
+    with pytest.raises(TypeError):
+        comb.comb_cuda(s, p, 2400, torch.float16)
     with pytest.raises(ValueError):
         comb.comb_filter_windows_batch(s, p, 2400, impl="ref")
 
@@ -73,9 +110,12 @@ def test_comb_kernel_rejects_what_it_does_not_take(cuda):
 def test_comb_kernel_out_of_range_period_gives_nan_frame(cuda):
     s, p = _comb_inputs(2, 3, 1, cuda)
     p[1, 2] = 900
-    out = comb.comb_cuda(s, p, 2400)
-    assert torch.isnan(out[1, 2]).all()
-    assert torch.isfinite(out[0]).all() and torch.isfinite(out[1, :2]).all()
+    for out in (comb.comb_cuda(s, p, 2400),
+                comb.comb_cuda(s, p, 2400, torch.bfloat16),
+                comb.comb_cuda_rows(s, p, 2400)):
+        assert torch.isnan(out[1, 2]).all()
+        assert torch.isfinite(out[0]).all() and \
+            torch.isfinite(out[1, :2]).all()
 
 
 def test_enhance_chunk_on_card_matches_cpu(cuda):
@@ -83,11 +123,11 @@ def test_enhance_chunk_on_card_matches_cpu(cuda):
     the card's run goes through the comb kernel."""
     sig = _noisy(2, 20, seed=7)
     model = PercepNet(torch.Generator().manual_seed(0))
-    comb.launches = 0
+    comb.reset_launches()
     pcm, _, (g, r) = pipeline.enhance_chunk(
         PercepNet(torch.Generator().manual_seed(0)).to(cuda), sig,
         pipeline.init_pipeline_state(2), return_gr=True)
-    assert comb.launches > 0
+    assert comb.launches["windows_f32"] > 0
     pcm_c, _, (g_c, r_c) = pipeline.enhance_chunk(
         model, sig, pipeline.init_pipeline_state(2, device="cpu"),
         return_gr=True, device="cpu")
@@ -111,3 +151,54 @@ def test_server_on_card_matches_batch(cuda):
         got.append(srv.step()[sid])
     np.testing.assert_allclose(np.concatenate(got), ref[sid].cpu().numpy(),
                                atol=2e-3)
+
+
+def test_bf16_tier_on_card_matches_cpu(cuda):
+    """The bf16 serving tier on the card launches the bf16 comb kernel and
+    stays within the bf16 bounds of the port's CPU run: g/r mean abs
+    <= 0.03 (tests/test_model.py), PCM <= 3e-3 + 32/32768 of full scale
+    (tests/test_pipeline.py); pitch periods equal the f32 tier's."""
+    bf16 = torch.bfloat16
+    sig = _noisy(2, 20, seed=9)
+    model = PercepNet(torch.Generator().manual_seed(0))
+    comb.reset_launches()
+    pcm, _, (g, r) = pipeline.enhance_chunk(
+        PercepNet(torch.Generator().manual_seed(0)).to(cuda), sig,
+        pipeline.init_pipeline_state(2, model_dtype=bf16), return_gr=True,
+        compute_dtype=bf16)
+    assert comb.launches["windows_bf16"] > 0
+    assert comb.launches["windows_f32"] == 0
+    pcm_c, _, (g_c, r_c) = pipeline.enhance_chunk(
+        model, sig, pipeline.init_pipeline_state(2, model_dtype=bf16,
+                                                 device="cpu"),
+        return_gr=True, device="cpu", compute_dtype=bf16)
+    assert (g.cpu() - g_c).abs().mean().item() <= 0.03
+    assert (r.cpu() - r_c).abs().mean().item() <= 0.03
+    assert (pcm.cpu() - pcm_c).abs().max().item() <= 3e-3 + 32 / 32768
+
+
+def test_bf16_int16_server_on_card_matches_batch(cuda):
+    """StreamingServer(model_dtype=bf16, io_int16=True) against one
+    batched bf16 enhance_chunk, truncated alike: within 3e-3 of full
+    scale + 32 LSB (tests/test_pipeline.py's bf16 streaming bound)."""
+    bf16 = torch.bfloat16
+    model = PercepNet(torch.Generator().manual_seed(0)).to(cuda)
+    srv = StreamingServer(model, capacity=4, model_dtype=bf16,
+                          io_int16=True)
+    assert next(model.parameters()).dtype == torch.float32
+    pcm16 = (_noisy(1, 10, seed=10)[0] * 32768).astype(np.int16)
+    full = np.zeros((4, pcm16.size), np.float32)
+    sid = srv.attach()
+    full[sid] = pcm16 / 32768.0
+    ref, _ = pipeline.enhance_chunk(
+        model.to(bf16), full, pipeline.init_pipeline_state(
+            4, model_dtype=bf16), compute_dtype=bf16)
+    ref = torch.clamp(ref * 32768, -32768, 32767).to(torch.int16)
+    got = []
+    for t in range(10):
+        srv.submit(sid, pcm16[t * C.FRAME_SIZE:(t + 1) * C.FRAME_SIZE])
+        got.append(srv.step()[sid])
+    got = np.concatenate(got)
+    assert got.dtype == np.int16
+    err = np.abs(got.astype(np.int32) - ref[sid].cpu().numpy()).max()
+    assert err <= 3e-3 * 32768 + 32

@@ -155,7 +155,7 @@ def test_comb_ref_matches_jax_gather(bsz, t):
 
 def test_comb_dispatch_on_cpu_takes_plain_version():
     s_pad, period = _comb_inputs(2, 5, seed=3)
-    before = comb.launches
+    before = dict(comb.launches)
     got = comb.comb_filter_windows_batch(_t(s_pad), _t(period), 2400)
     np.testing.assert_array_equal(
         got.numpy(), comb.comb_ref(_t(s_pad), _t(period), 2400).numpy())
