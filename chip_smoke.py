@@ -11,9 +11,13 @@ Phases, each printing one JSON progress line:
            build/percepnet_tpu_torch/ and the script times it;
   comb     through percepnet_tpu_torch.bench_comb: both comb kernels (v1
            csrc/comb.cu, the row-layout v2 csrc/comb_rows.cu), each with
-           an f32 and a bf16 store, against their plain PyTorch version on
-           the card at the serving and batch shapes, then timed with CUDA
-           events (the timed run is v2's path: its launch count);
+           an f32 and a bf16 store, bit for bit against their plain
+           PyTorch version on the card at the serving and batch shapes,
+           at 3 x 37, on an edge-period input (max_period and the NaN
+           frame past it in one tile, a ragged last tile, period 60) in
+           several tilings, and on 4 rows of 512 x 200; then timed with
+           CUDA events at 64 x 1, 16 x 200, 64 x 100 and 512 x 200 (the
+           timed run is v2's path: its launch count);
   batch    enhance_chunk with the round-5 checkpoint at 16 streams x 200
            frames on the card, against the same call on the CPU;
   batch_bf16  the bf16 serving tier (compute_dtype=bfloat16) on 16
@@ -25,6 +29,9 @@ Phases, each printing one JSON progress line:
            flush, against one batched enhance_chunk on the card;
   serve_bf16  the same with model_dtype=bfloat16 and io_int16=True,
            against one batched bf16 enhance_chunk, truncated alike;
+  serve_raw  the float-wire f32 and bf16 servers fed 8 streams x 50 ticks
+           at raw int16 amplitude, the checkpoint's training scale, each
+           against one batched enhance_chunk at that scale;
   profile  torch.profiler over 10 f32 ticks: kernels per tick and the
            device's busy share.
 Then a `kernels` line and, last, the result line.  Any failed check
@@ -64,6 +71,11 @@ SERVE_BF16_LSB = 3e-3 * 32768 + 32
 SERVE_BF16_MIN_CORR = 0.99
 # bf16 vs f32 quality deltas (tools/quality_gate.py's bf16 gate)
 DSTOI_TOL, DSISDR_TOL = 0.005, 0.3
+# the comb kernels' shapes: checked at all, timed at the main path's four;
+# the kernels line's top-level numbers are at the first
+COMB_CHECK_SHAPES = ((64, 100), (64, 1), (16, 200), (3, 37), (512, 200))
+COMB_TIME_SHAPES = ((64, 100), (64, 1), (16, 200), (512, 200))
+COMB_EDGE_GRIDS = ((8, 1), (12, 1), (3, 3), (1, 2))
 
 
 START = time.perf_counter()
@@ -81,51 +93,71 @@ def require(ok: bool, what: str) -> None:
 
 
 def phase_comb(rng: np.random.Generator) -> dict:
-    """Both comb kernels and both stores against the plain version at
-    each shape, then timed; the timed run is the bench's own path, so
-    its launches of v2 are v2's count."""
+    """Both comb kernels and both stores against the plain version, bit
+    for bit, at each shape (4 rows of 512 x 200, in its own tiling too)
+    and on the edge-period input in several tilings; NaN frames exactly
+    where the period is out of range.  Then each is timed at the main
+    path's shapes; the timed run is the bench's own path, so its
+    launches of v2 are v2's count."""
     import torch
     from percepnet_tpu_torch import bench_comb
     from percepnet_tpu_torch.ops import comb
-    shapes = [(64, 100), (64, 1), (16, 200), (3, 37)]
-    inputs = []
-    for bsz, t in shapes:
+    cases = {}
+    for bsz, t in COMB_CHECK_SHAPES:
         n_pad = t * 480 + 5280
-        inputs.append((
+        cases[f"{bsz}x{t}"] = (
             torch.from_numpy(rng.standard_normal((bsz, n_pad)).astype(
                 np.float32)).cuda(),
             torch.from_numpy(rng.integers(60, 770, (bsz, t)).astype(
-                np.int32)).cuda()))
-    rows, max_abs, max_rel = [], {}, 0.0
-    for (bsz, t), (s_pad, period) in zip(shapes, inputs):
-        checks = bench_comb.check(s_pad, period)
-        scale = comb.comb_ref(s_pad, period, 2400).abs().max().item()
+                np.int32)).cuda())
+    cases["edge"] = bench_comb.edge_inputs()
+    checked, max_abs, max_rel = {}, {}, 0.0
+    for name, (s_pad, period) in cases.items():
+        bsz, t = period.shape
+        grids = (None, comb.tile_grid(bsz, t))
+        if name == "edge":
+            grids += COMB_EDGE_GRIDS
+        s_chk, p_chk = bench_comb.check_slice(s_pad, period)
+        checks = bench_comb.check(s_chk, p_chk, grids)
+        ref = comb.comb_ref(s_chk, p_chk, 2400)
+        scale = ref[torch.isfinite(ref)].abs().max().item()
         rel = checks["v1_f32"]["max_abs_err"] / scale
-        require(bool(torch.isfinite(comb.comb_cuda(s_pad, period,
-                                                   2400)).all()),
-                f"comb finite at {bsz}x{t}")
+        max_p = comb.max_period(t, s_pad.shape[1], 2400)
+        out_of_range = (p_chk < 0) | (p_chk > max_p)
+        got = comb.comb_cuda(s_chk, p_chk, 2400)
+        require(torch.equal(torch.isnan(got).all(-1), out_of_range)
+                and bool(torch.isfinite(got[~out_of_range]).all()),
+                f"comb NaN frames exactly the out-of-range ones at {name}")
         require(rel <= COMB_REL_TOL,
-                f"comb v1 f32 vs plain at {bsz}x{t}: {rel:.3g} > "
+                f"comb v1 f32 vs plain at {name}: {rel:.3g} > "
                 f"{COMB_REL_TOL}")
-        exact = {k: v for k, v in checks.items() if k != "v1_f32"}
-        require(bench_comb.all_exact(exact),
-                f"comb bf16 stores and v2 bit for bit at {bsz}x{t}: {checks}")
+        require(bench_comb.all_exact(checks),
+                f"comb kernels and stores bit for bit at {name}: {checks}")
         for k, v in checks.items():
             if isinstance(v, dict):
                 max_abs[k] = max(max_abs.get(k, 0.0), v["max_abs_err"])
         max_rel = max(max_rel, rel)
-        rows.append({"B": bsz, "T": t, "v1_f32_max_rel_err": rel,
-                     "checks": checks})
+        checked[name] = {"B": bsz, "T": t, "rows_checked": p_chk.shape[0],
+                         "grids": [list(g) if g else "default"
+                                   for g in grids],
+                         "nan_frames": int(out_of_range.sum()),
+                         "v1_f32_max_rel_err": rel, "checks": checks}
     torch.cuda.synchronize()
     comb.reset_launches()
-    for row, (s_pad, period) in zip(rows, inputs):
-        row["ms"] = bench_comb.time_variants(s_pad, period)
+    timed = {}
+    for bsz, t in COMB_TIME_SHAPES:
+        timed[f"{bsz}x{t}"] = {"B": bsz, "T": t,
+                               "grid": list(comb.tile_grid(bsz, t)),
+                               "ms": bench_comb.time_variants(
+                                   *cases[f"{bsz}x{t}"])}
     torch.cuda.synchronize()
-    rows_launches = comb.launches["rows_f32"] + comb.launches["rows_bf16"]
-    require(rows_launches > 0, "the bench path launched the v2 kernel")
+    rows_launches = {store: comb.launches[f"rows_{store}"]
+                     for store in ("f32", "bf16")}
+    require(min(rows_launches.values()) > 0,
+            "the bench path launched the v2 kernel in both stores")
     emit("comb", tolerance_rel_v1_f32=COMB_REL_TOL,
-         v2_launches_in_bench=rows_launches, shapes=rows)
-    return {"rows": rows, "max_abs_err": max_abs, "max_rel_err": max_rel,
+         v2_launches_in_bench=rows_launches, checked=checked, timed=timed)
+    return {"timed": timed, "max_abs_err": max_abs, "max_rel_err": max_rel,
             "v2_launches": rows_launches}
 
 
@@ -474,6 +506,68 @@ def phase_serve_bf16(model_cpu, sig: np.ndarray, f32: dict) -> dict:
     return out
 
 
+def phase_serve_raw(model_cpu, sig: np.ndarray) -> dict:
+    """The float-wire servers, f32 and bf16, fed the streams at raw int16
+    amplitude (sig * 32768), the scale the checkpoint was trained at, so
+    that the output is large beside the bounds; each against one batched
+    enhance_chunk on the card at that scale (the float wire does not
+    rescale)."""
+    import torch
+    from percepnet_tpu_torch import pipeline
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.serve import StreamingServer
+
+    bf16 = torch.bfloat16
+    model = copy.deepcopy(model_cpu).to("cuda")
+    capacity = 64
+    raw = sig * 32768.0
+    n_streams, n = raw.shape
+    out = {"capacity": capacity, "streams": n_streams, "T": n // 480}
+    for tag, dtype, bound in (("f32", torch.float32, SERVE_ATOL * 32768.0),
+                              ("bf16", bf16, SERVE_BF16_LSB)):
+        srv = StreamingServer(model, capacity=capacity, model_dtype=dtype,
+                              log1p_features=True)
+        comb.reset_launches()
+        res = run_ticks(srv, raw)
+        launches = comb.launches[f"windows_{tag}"]
+        require(launches > 0,
+                f"the raw-scale {tag} server launched the {tag} comb kernel")
+        ticks = len(res["tick_s"])
+        full = np.zeros((capacity, ticks * 480), np.float32)
+        for i, sid in enumerate(res["sids"]):
+            full[sid, :n] = raw[i]
+        kw = {"compute_dtype": bf16} if dtype == bf16 else {}
+        ref, _ = pipeline.enhance_chunk(
+            copy.deepcopy(model).to(dtype), full,
+            pipeline.init_pipeline_state(capacity, model_dtype=dtype),
+            log1p_features=True, **kw)
+        ref = ref.cpu().numpy()
+        got = res["got"]
+        err = float(max(np.abs(got[sid] - ref[sid]).max() for sid in got))
+        peak = float(max(np.abs(ref[sid]).max() for sid in got))
+        corr = float(min(np.corrcoef(got[sid].astype(np.float64),
+                                     ref[sid].astype(np.float64))[0, 1]
+                         for sid in got))
+        out[tag] = {"comb_launches": launches, "ticks": ticks,
+                    "max_err_vs_batch": err, "bound": bound,
+                    "output_peak": peak, "bound_over_peak": bound / peak,
+                    "err_over_bound": err / bound,
+                    "min_corr_vs_batch": corr,
+                    "min_corr_bound": SERVE_BF16_MIN_CORR}
+    emit("serve_raw", **out)
+    for tag in ("f32", "bf16"):
+        r = out[tag]
+        require(np.isfinite(r["max_err_vs_batch"])
+                and r["max_err_vs_batch"] <= r["bound"],
+                f"raw-scale {tag} server vs batch {r['max_err_vs_batch']:.4g}"
+                f" > {r['bound']:.4g}")
+        require(r["output_peak"] > 0, f"raw-scale {tag} output not zeros")
+        require(r["min_corr_vs_batch"] >= SERVE_BF16_MIN_CORR,
+                f"raw-scale {tag} server vs batch correlation "
+                f"{r['min_corr_vs_batch']:.6f} < {SERVE_BF16_MIN_CORR}")
+    return out
+
+
 def phase_profile(model_cpu, sig: np.ndarray, tick_ms: float) -> dict:
     """Where a serving tick's time goes: torch.profiler over 10 ticks of
     the serve phase's configuration.  Device busy share = the ticks'
@@ -549,12 +643,14 @@ def main() -> int:
         16, np.random.default_rng(20261018)))
     serve = phase_serve(model_cpu, serve_sig)
     serve16 = phase_serve_bf16(model_cpu, serve_sig, serve)
+    phase_serve_raw(model_cpu, serve_sig[:, : 50 * 480])
     phase_profile(model_cpu, serve_sig, serve["tick_ms_median"])
 
-    main_shape = comb_res["rows"][0]
-    ms = main_shape["ms"]
+    timed = comb_res["timed"]
+    main_shape = next(iter(timed.values()))
 
     def entry(name, source, replaces, function, launches, variant, store):
+        ms = main_shape["ms"]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "replaces_function": function,
@@ -564,26 +660,34 @@ def main() -> int:
             "plain_ms": ms[f"plain_{store}"],
             "bound_ms": ms[f"bound_{store}"], "bound_by": ms["bound_by"],
             "library_ms": None, "store": store,
-            "shape": [main_shape["B"], main_shape["T"]]}
+            "shape": [main_shape["B"], main_shape["T"]],
+            "shapes": {key: {"ms": row["ms"][f"{variant}_{store}"],
+                             "plain_ms": row["ms"][f"plain_{store}"],
+                             "bound_ms": row["ms"][f"bound_{store}"],
+                             "share_of_bound":
+                                 row["ms"][f"share_{variant}_{store}"],
+                             "grid": row["grid"]}
+                       for key, row in timed.items()}}
 
     b1 = ("percepnet_tpu_torch/csrc/comb.cu", "percepnet_tpu/ops/comb.py:252",
           "_comb_pallas (kernel body _comb_kernel, :69)")
+    b2 = ("percepnet_tpu_torch/csrc/comb_rows.cu",
+          "percepnet_tpu/ops/comb.py:202",
+          "_comb_pallas_v2 (kernel body _comb_kernel_v2, :135)")
+    v2_path = "percepnet_tpu_torch.bench_comb (never dispatched)"
     kernel_lines = [
         entry("comb_filter_windows", *b1, serve["comb_launches"], "v1",
               "f32"),
         entry("comb_filter_windows_bf16", *b1,
               serve16["comb_bf16_launches"], "v1", "bf16"),
-        entry("comb_filter_windows_rows", "percepnet_tpu_torch/csrc/"
-              "comb_rows.cu", "percepnet_tpu/ops/comb.py:202",
-              "_comb_pallas_v2 (kernel body _comb_kernel_v2, :135)",
-              comb_res["v2_launches"], "v2", "f32"),
+        entry("comb_filter_windows_rows", *b2,
+              comb_res["v2_launches"]["f32"], "v2", "f32"),
+        entry("comb_filter_windows_rows_bf16", *b2,
+              comb_res["v2_launches"]["bf16"], "v2", "bf16"),
     ]
     kernel_lines[0]["max_rel_err"] = comb_res["max_rel_err"]
-    kernel_lines[2].update(
-        ms_bf16=ms["v2_bf16"], plain_ms_bf16=ms["plain_bf16"],
-        bound_ms_bf16=ms["bound_bf16"],
-        max_abs_err_bf16=comb_res["max_abs_err"]["v2_bf16"],
-        launches_path="percepnet_tpu_torch.bench_comb (never dispatched)")
+    for line in kernel_lines[2:]:
+        line["launches_path"] = v2_path
     print(json.dumps({"kernels": kernel_lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -6,16 +6,24 @@ interface, `build/percepnet_tpu_torch/libpercepnet_kernels.so` under the
 checkout's root, loaded with ctypes.  No PyTorch header is compiled, so a
 build takes seconds.  The library is rebuilt only when a source is newer
 than it.  Nothing is built at import: the first launch builds.
+
+Processes that build at once (card tests under xdist, two scripts on one
+checkout) take turns: the stale check, compile and link run under an
+exclusive lock on `build/percepnet_tpu_torch/.lock`, objects go to a
+directory of the building process's own, and the library replaces the old
+one in one rename.  A process that waited finds the library fresh.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -28,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes signatures of the C entry points: pointers and the stream as
 # c_void_p (a plain int would be cut to 32 bits), ints as c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_COMB = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+# s_pad, period, taps, window, out; batch, n_frames, n_pad, x_offset,
+# frames per tile, column slices; stream
+_COMB = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "percepnet_comb_windows_f32": _COMB,
     "percepnet_comb_windows_bf16": _COMB,
@@ -57,17 +67,12 @@ def _is_stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
-def build() -> bool:
-    """Compile every csrc/*.cu (one nvcc each, all started together) and
-    link the library, unless it is up to date.  Returns True if it
-    compiled.  Raises with the compiler's output when a step fails."""
-    if not _is_stale():
-        return False
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _compile(nvcc: str, workdir: pathlib.Path) -> pathlib.Path:
+    """Compile every source into workdir, all at once, and link them
+    there; returns the library's path in workdir."""
     jobs = []
     for src in _sources():
-        obj = BUILD_DIR / (src.stem + ".o")
+        obj = workdir / (src.stem + ".o")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -79,16 +84,31 @@ def build() -> bool:
             failures.append(f"{' '.join(cmd)}\n{out}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp),
+    lib = workdir / LIBRARY.name
+    link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(lib),
             *(str(obj) for _, obj, _ in jobs)]
     res = subprocess.run(link, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
         raise RuntimeError(
             f"nvcc link failed:\n{' '.join(link)}\n{res.stdout}")
-    os.replace(tmp, LIBRARY)
-    return True
+    return lib
+
+
+def build() -> bool:
+    """Compile every csrc/*.cu (one nvcc each, all started together) and
+    link the library, unless it is up to date.  Returns True if it
+    compiled.  Raises with the compiler's output when a step fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when closed
+        if not _is_stale():
+            return False
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(
+                prefix=f"build.{os.getpid()}.", dir=BUILD_DIR) as work:
+            os.replace(_compile(nvcc, pathlib.Path(work)), LIBRARY)
+        return True
 
 
 @functools.lru_cache(maxsize=None)

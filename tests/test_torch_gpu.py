@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from percepnet_tpu_torch import bench_comb
 from percepnet_tpu_torch import constants as C
 from percepnet_tpu_torch import pipeline
 from percepnet_tpu_torch.models.percepnet import PercepNet
@@ -91,6 +92,42 @@ def test_comb_rows_kernel_equals_v1_bit_for_bit(cuda, bsz, t):
     assert torch.equal(_bits(v2_16), _bits(v2.to(torch.bfloat16)))
     rows = v2_16.as_strided((bsz, t, comb.ROW_LEN), v2_16.stride())
     assert not rows[..., 960:].abs().max().item()
+
+
+def _edge_case(case, device):
+    """Inputs and the tilings to launch them in: the edge-period input
+    (max_period and the NaN frame past it in one tile, -1, 60, a ragged
+    last tile, a tile with nothing to stage), a ragged last tile, B = 1
+    and T = 1, and 4 rows of 512 x 200 in that shape's own tiling."""
+    if case == "edge":
+        s, p = bench_comb.edge_inputs(device=device)
+        return s, p, (None, (8, 1), (12, 1), (3, 3), (1, 2))
+    if case == "ragged":
+        s, p = _comb_inputs(5, 13, 3, device)
+        return s, p, (None, (8, 1), (12, 1), (5, 2), (4, 8))
+    if case == "b1t1":
+        s, p = _comb_inputs(1, 1, 4, device)
+        return s, p, (None, (1, 1), (1, 8))
+    s, p = bench_comb.make_inputs(512, 200, device=device)
+    s, p = bench_comb.check_slice(s, p)
+    return s, p, (None, comb.tile_grid(512, 200))
+
+
+@pytest.mark.parametrize("case", ["edge", "ragged", "b1t1", "512x200_rows4"])
+def test_comb_kernels_bit_exact_on_edge_inputs(cuda, case):
+    """Every kernel and store, in every tiling, equals the plain version
+    bit for bit; NaN frames exactly where the period is out of range."""
+    s, p, grids = _edge_case(case, cuda)
+    checks = bench_comb.check(s, p, grids)
+    assert bench_comb.all_exact(checks), checks
+    max_p = comb.max_period(p.shape[1], s.shape[1], 2400)
+    bad = (p < 0) | (p > max_p)
+    for out in (comb.comb_cuda(s, p, 2400),
+                comb.comb_cuda(s, p, 2400, torch.bfloat16),
+                comb.comb_cuda_rows(s, p, 2400),
+                comb.comb_cuda_rows(s, p, 2400, torch.bfloat16)):
+        assert torch.equal(torch.isnan(out).all(-1), bad)
+        assert torch.isfinite(out[~bad]).all()
 
 
 def test_comb_kernel_rejects_what_it_does_not_take(cuda):
