@@ -2,11 +2,14 @@
 
 Module names mirror the JAX package (`percepnet_tpu`), which stays the
 reference the port is held against.  The port imports torch, numpy, the
-standard library and, for STOI's resampling (utils.metrics), scipy.
+standard library and scipy (resampling in utils.metrics and utils.pesq,
+the augmentation biquads).
 
 Entry points (`pipeline.enhance_chunk`, `pipeline.enhance_utterance`,
-`serve.StreamingServer`) run on the CUDA card unless the caller passes
-device="cpu"; with no card they raise instead of running on the host.
+`serve.StreamingServer` and the commands of `python -m
+percepnet_tpu_torch`: enhance, featgen, export, evaluate, bench) run on
+the CUDA card unless the caller passes device="cpu" (`--device cpu`);
+with no card they raise instead of running on the host.
 
 TF32 is switched off for matmuls and cuDNN convolutions here, at import:
 the parity gates (1e-4 PCM, exact pitch periods) do not survive its

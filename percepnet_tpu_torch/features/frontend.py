@@ -139,3 +139,16 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
                ey_look=ey_look, period=period, gain=track["gain"],
                corr=track["corr"], silence=silence, features=features)
     return out, new_state
+
+
+def analyze_utterance(signal: torch.Tensor,
+                      state: FrontendState | None = None, *,
+                      serving: bool = False, impl: str | None = None):
+    """Single-utterance variant of analyze_batch: signal [n_samples] ->
+    (dict of [T, ...], FrontendState of one stream)."""
+    if state is not None:
+        state = FrontendState(*(x[None] for x in state))
+    out, new_state = analyze_batch(signal[None], state, serving=serving,
+                                   impl=impl)
+    return ({k: v[0] for k, v in out.items()},
+            FrontendState(*(x[0] for x in new_state)))

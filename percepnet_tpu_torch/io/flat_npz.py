@@ -1,8 +1,12 @@
-"""Load the JAX package's flat `params/<layer>/<leaf>` weight arrays
-(percepnet_tpu/io/flat_npz.py) into a PercepNet module, with numpy only.
+"""Weights as flat `params/<layer>/<leaf>` arrays in an .npz, with numpy
+only: the JAX package's weight-exchange format (percepnet_tpu/io/
+flat_npz.py, train/checkpoint.py), so files written by either package
+load in the other.
 
-Covers the checkpoints in artifacts/*.npz and the `params/*` keys of
-tests/goldens/nn.npz; other keys in the mapping are ignored.
+`load_params` reads a params-only file (artifacts/*.npz, the `params/*`
+keys of tests/goldens/nn.npz) and the `params/*` subtree of a full
+TrainState checkpoint (the one with `step`) alike, without rebuilding
+the optimizer state; other keys are ignored.
 """
 
 from __future__ import annotations
@@ -32,7 +36,24 @@ def params_from_flat(mapping) -> PercepNet:
     return model
 
 
+def params_to_flat(model: PercepNet) -> dict[str, np.ndarray]:
+    """The model's parameters as f32 `params/<layer>/<leaf>` arrays, in
+    the JAX package's PercepNetParams order."""
+    return {f"params/{layer}/{leaf}":
+            getattr(model, layer)[leaf].detach().to(
+                device="cpu", dtype=torch.float32).numpy()
+            for layer, leaves in LAYERS.items() for leaf in leaves}
+
+
 def load_params(path: str | os.PathLike) -> PercepNet:
-    """params_from_flat of an .npz file."""
+    """params_from_flat of an .npz file: params-only or a TrainState
+    checkpoint."""
     with np.load(path) as data:
         return params_from_flat(data)
+
+
+def save_params_npz(path: str | os.PathLike, model: PercepNet) -> None:
+    """Params-only export (the deployment artifact), with the keys the JAX
+    package's train.checkpoint.save_params_npz writes."""
+    os.makedirs(os.path.dirname(os.fspath(path)) or ".", exist_ok=True)
+    np.savez(path, **params_to_flat(model))

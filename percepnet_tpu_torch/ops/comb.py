@@ -51,6 +51,10 @@ _STORES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # to know whether a run went through a kernel.
 launches = {f"{layout}_{store}": 0 for layout in ("windows", "rows")
             for store in _STORES.values()}
+# The (entry point, B, T, n_pad) of every launch since reset_launches(),
+# for a caller that holds each kernel against its plain version at the
+# shapes a run gave it.
+launch_shapes: set[tuple[str, int, int, int]] = set()
 
 _MAX_GRID = 65535                # grid y (tiles) and z (batch rows)
 
@@ -58,6 +62,7 @@ _MAX_GRID = 65535                # grid y (tiles) and z (batch rows)
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launch_shapes.clear()
 
 
 def _check_inputs(s_pad: torch.Tensor, period: torch.Tensor,
@@ -187,6 +192,7 @@ def _launch(layout: str, width: int, s_pad: torch.Tensor,
         raise RuntimeError(f"comb kernel {name} launch failed: CUDA error "
                            f"{err}")
     launches[name] += 1
+    launch_shapes.add((name, bsz, t, s_pad.shape[1]))
     return out
 
 

@@ -1,18 +1,27 @@
-"""Objective speech-quality metrics on numpy: SI-SDR and STOI.
+"""Objective speech-quality metrics on numpy: SNR, SI-SDR and STOI.
 
 The port's own copy of the JAX package's numpy metrics
-(percepnet_tpu/utils/metrics.py:27-151), for the bf16 serving tier's
-quality check (bf16 vs f32 enhancement of the same pairs, as
+(percepnet_tpu/utils/metrics.py), for `cli.evaluate` and the bf16 serving
+tier's quality check (bf16 vs f32 enhancement of the same pairs, as
 tools/quality_gate.py does).  STOI (Taal et al. 2011) and SI-SDR (Le Roux
 et al. 2019) are implemented from their definitions.
 
-Both take time-domain signals at `fs` Hz (48 kHz by default; STOI
+All take time-domain signals at `fs` Hz (48 kHz by default; STOI
 resamples to 10 kHz as the measure specifies).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def snr_db(reference: np.ndarray, estimate: np.ndarray) -> float:
+    """Plain signal-to-noise ratio in dB."""
+    reference = np.asarray(reference, np.float64)
+    estimate = np.asarray(estimate, np.float64)
+    noise = estimate - reference
+    return 10.0 * np.log10(
+        (np.sum(reference ** 2) + 1e-12) / (np.sum(noise ** 2) + 1e-12))
 
 
 def si_sdr_db(reference: np.ndarray, estimate: np.ndarray) -> float:

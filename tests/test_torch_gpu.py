@@ -9,6 +9,8 @@ port's own CPU run.  On that machine, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,8 @@ from percepnet_tpu_torch.ops import comb
 from percepnet_tpu_torch.serve import StreamingServer
 
 pytestmark = pytest.mark.gpu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -239,3 +243,51 @@ def test_bf16_int16_server_on_card_matches_batch(cuda):
     assert got.dtype == np.int16
     err = np.abs(got.astype(np.int32) - ref[sid].cpu().numpy()).max()
     assert err <= 3e-3 * 32768 + 32
+
+
+CHECKPOINT = os.path.join(ROOT, "artifacts", "exp_log1p_30000_params.npz")
+FEATGEN = os.path.join(ROOT, "tests", "goldens", "featgen.npz")
+
+
+def test_enhance_cli_on_card_matches_enhance_chunk(cuda, tmp_path):
+    """`python -m percepnet_tpu_torch enhance` on the card (its default)
+    writes what one enhance_chunk on the card gives for the file plus the
+    flush frames, first frame dropped and C-cast: within 1 LSB."""
+    from percepnet_tpu_torch import __main__ as dispatcher
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    with np.load(FEATGEN) as g:
+        noisy = g["noisy16"][: 30 * C.FRAME_SIZE]
+    src, dst = str(tmp_path / "in.pcm"), str(tmp_path / "out.pcm")
+    noisy.astype("<i2").tofile(src)
+    comb.reset_launches()
+    dispatcher.main(["enhance", src, dst, "--weights", CHECKPOINT,
+                     "--log1p", "--raw-scale"])
+    assert comb.launches["windows_f32"] > 0
+    sig = np.zeros((1, (30 + pipeline.flush_frames()) * C.FRAME_SIZE),
+                   np.float32)
+    sig[0, : noisy.size] = noisy
+    ref, _ = pipeline.enhance_chunk(load_params(CHECKPOINT).to(cuda), sig,
+                                    pipeline.init_pipeline_state(1),
+                                    log1p_features=True)
+    ref = np.trunc(np.clip(ref[0, C.FRAME_SIZE : noisy.size].cpu().numpy(),
+                           -32768, 32767))
+    got = np.fromfile(dst, "<i2").astype(np.float64)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1
+
+
+def test_featgen_on_card_periods_match_golden(cuda, tmp_path):
+    """`featgen` on the card (f32, through the comb kernel) gives the C
+    binary's pitch periods on the golden clip, frame for frame."""
+    from percepnet_tpu_torch import __main__ as dispatcher
+    with np.load(FEATGEN) as g:
+        clean, noisy, ref = g["clean16"], g["noisy16"], g["records"]
+    paths = [str(tmp_path / n) for n in ("c.pcm", "n.pcm", "out.f32")]
+    clean.astype("<i2").tofile(paths[0])
+    noisy.astype("<i2").tofile(paths[1])
+    comb.reset_launches()
+    dispatcher.main(["featgen", *paths[:2], "200", paths[2]])
+    assert comb.launches["windows_f32"] > 0
+    rec = np.fromfile(paths[2], "<f4").reshape(-1, C.RECORD_DIM)
+    np.testing.assert_array_equal(np.round(rec[:, 68] * 588),
+                                  np.round(ref[:, 68] * 588))
