@@ -44,7 +44,22 @@ Phases, each printing one JSON progress line:
            seeded pairs through --pairs-file --batch 16: records/s;
   bench    the port's bench (percepnet_tpu_torch.bench.run) at 64 x 200
            in f32 and bf16: its JSON lines and peak memory; and the
-           frontend / model / enhance split of one call at 512 x 200.
+           frontend / model / enhance split of one call at 512 x 200;
+  train    the training bench (bench.run_train) at the DNS recipe's
+           64 x 2000: 1 warm-up and 2 timed steps with remat, then 1 + 1
+           without it for its memory; then, on 4 x 100 of featgen's
+           records, a step on the card against the port's CPU (loss,
+           every gradient leaf, their cosine) and 8 steps' losses, from
+           the round-5 checkpoint and from a random init (there with the
+           forward products rounded once from f64 on both devices, and
+           the f64 gradients of both);
+  train_chain  the user's path on the card through the commands:
+           featgen (16 pairs, 200 frames) -> split-dataset -> train (8 x
+           100, 30 steps) with a dev list; the loss falls, checkpoint-30
+           has the JAX package's keys and dtypes, a resumed 31st step
+           equals an uninterrupted 31-step run bit for bit, and enhance
+           runs with checkpoint-31;
+  comb_paths  B1 bit for bit at every shape a driven path launched it.
 Then a `kernels` line and, last, the result line.  Any failed check
 raises and the script exits non-zero without a result line; so does a
 machine without a CUDA card.
@@ -118,6 +133,19 @@ FEATGEN_FLIP_MARGIN = 5e-4
 FEATGEN_PAIRS = 16
 BENCH_SHAPE = (64, 200)
 BENCH_SPLIT_SHAPE = (512, 200)    # the bench's own shape
+# training: the DNS recipe's shape (configs/dns_challenge.yaml), timed
+# steps after one warm-up; the card-vs-CPU check's shape and its bounds,
+# set before the first run on the card (the GRU-amplified card-vs-CPU
+# arithmetic, as for g/r): one loss, each gradient leaf against its max
+# |g| and the cosine over all leaves, then 8 steps' losses
+TRAIN_SHAPE = (64, 2000)
+TRAIN_TIMED_STEPS = 2         # 3 until the train phase passed 150 s
+TRAIN_CHECK_SHAPE = (4, 100)
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_COS = 1e-4, 1e-2, 0.9999
+TRAIN_CHECK_STEPS, TRAIN_STEPS_REL = 8, 1e-3
+# the chain: featgen's pairs and frames, then train's batch, length, steps
+CHAIN_PAIRS, CHAIN_FRAMES = 16, 200
+CHAIN_BATCH, CHAIN_SEQ, CHAIN_STEPS = 8, 100, 30
 
 
 START = time.perf_counter()
@@ -916,6 +944,7 @@ def phase_featgen(tmp: pathlib.Path, smi: str) -> dict:
                 f"featgen r flip at ({t}, {b}) has override margin {m:+.3g}, "
                 f"not borderline (< {FEATGEN_FLIP_MARGIN})")
     require(out["batched_records_finite"], "batched records finite, whole")
+    out["records"] = [r.reshape(-1, 138) for r in recs]
     return out
 
 
@@ -950,6 +979,336 @@ def phase_bench(smi: str) -> dict:
             split, _ = stage_seconds(model, x, **kw)
         out[f"split_{tag}"] = split
     emit("bench", **out)
+    return out
+
+
+def train_batches(records: list, n_batches: int) -> list:
+    """Featgen's records as train.datasets loads them (x30 on columns
+    0:68), cut into TRAIN_CHECK_SHAPE batches: [(x, y)] on the CPU."""
+    import torch
+    from percepnet_tpu_torch import constants as C
+    from percepnet_tpu_torch.train import datasets
+    bsz, t = TRAIN_CHECK_SHAPE
+    chunks = []
+    for rec in records:
+        for c in range(rec.shape[0] // t):
+            chunk = rec[c * t : (c + 1) * t].copy()
+            chunk[:, datasets.SCALE_COLS] *= C.FEATURE_SCALE
+            chunks.append(chunk)
+    require(len(chunks) >= bsz * n_batches, "enough featgen chunks")
+    out = []
+    for i in range(n_batches):
+        x, y = datasets.split_xy(np.stack(chunks[i * bsz : (i + 1) * bsz]))
+        out.append((torch.from_numpy(np.ascontiguousarray(x)),
+                    torch.from_numpy(np.ascontiguousarray(y))))
+    return out
+
+
+def conv2_preactivation(model, x, dev: str, dtype) -> tuple:
+    """conv2's pre-activation [B, T, 512] on `dev` in `dtype` (the
+    model's input stack, log1p features) and, for each element, the sum
+    of its terms' magnitudes: the ratio is its condition number."""
+    import torch
+    from percepnet_tpu_torch.models import percepnet as pm
+    m = copy.deepcopy(model).to(dev, dtype)
+    x = pm.compress_features(x.to(dev)).to(dtype)
+    st = pm.init_model_state(x.shape[0], x.device, dtype)
+    with torch.no_grad():
+        h = torch.relu(x @ m.fc["w"] + m.fc["b"])
+        c1, _ = pm._causal_conv(m.conv1, h, st.conv1_mem, torch.relu)
+        pre, _ = pm._causal_conv(m.conv2, c1, st.conv2_mem, lambda v: v)
+        xp = torch.cat([st.conv2_mem, c1], dim=1).abs()
+        w = m.conv2["w"].abs()
+        mag = m.conv2["b"].abs() + sum(xp[:, k : k + x.shape[1]] @ w[k]
+                                       for k in range(w.shape[0]))
+    return pre.cpu().double(), mag.cpu().double()
+
+
+def phase_train(records: list, smi: str) -> dict:
+    """The training step on the card: the --train bench at TRAIN_SHAPE
+    with remat (JAX's default) and without it; then, on featgen's
+    records with log1p features, a step on the card against the port's
+    CPU and TRAIN_CHECK_STEPS steps' losses from two starts.  From the
+    round-5 checkpoint (fine-tuning it, as configs/dns_log1p.yaml
+    trained it) with the plain f32 step.  From a random init (PercepNet
+    seed 0, the reference recipe's start) the input stack's gradient is
+    ill-conditioned in f32 on these raw-scale records
+    (train/numerics.py): there the plain step is held on its loss and
+    cosine, the f64 gradients of both devices against each other, and,
+    with every forward product rounded once from f64 on both devices,
+    each of TRAIN_CHECK_STEPS steps on the card against the CPU's step
+    from the same state (run freely, the two trajectories part after a
+    few steps, as any two f32 runs do from this start; printed).  The
+    phase prints each f32 gradient's distance from the f64 one and the
+    conv2 pre-activation that decides it, on both devices."""
+    import torch
+    from percepnet_tpu_torch import bench
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    from percepnet_tpu_torch.models.percepnet import PercepNet
+    from percepnet_tpu_torch.train import numerics
+    from percepnet_tpu_torch.train import state as ts
+    from percepnet_tpu_torch.train.loss import percepnet_loss
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is off for the f32 training step")
+    t0 = time.perf_counter()
+    timed = bench.run_train(*TRAIN_SHAPE, steps=TRAIN_TIMED_STEPS)
+    no_remat = bench.run_train(*TRAIN_SHAPE, steps=1, remat=False)
+    bench_s = time.perf_counter() - t0
+    for res in (timed, no_remat):
+        print(f"{smi} | train f32 {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} | "
+              f"remat {'on' if res['remat'] else 'off'} | "
+              f"{res['step_ms']:.1f} ms per step | {res['value']} "
+              f"audio-s/s | peak allocated {res['peak_allocated_bytes']} "
+              f"bytes", flush=True)
+
+    t0 = time.perf_counter()
+    batches = train_batches(records, 2)
+    names = [f"{layer}/{leaf}" for layer, leaf in ts.LEAVES]
+
+    def exact_if(exact: bool):
+        return numerics.ExactProducts() if exact else contextlib.nullcontext()
+
+    def loss_grads(model, dev, dtype=torch.float32, exact=False,
+                   batch=0):
+        model = copy.deepcopy(model).to(dev, dtype)
+        x, y = (v.to(dev) for v in batches[batch])
+        with exact_if(exact):
+            g, r, _ = model(x, log1p_features=True, remat=True,
+                            compute_dtype=dtype)
+            loss = percepnet_loss(torch.cat([g, r], dim=-1).to(dtype),
+                                  y.to(dtype))
+            grads = torch.autograd.grad(loss, ts.parameters(model))
+        return loss.item(), [g.cpu().double() for g in grads]
+
+    def compare(want, got) -> dict:
+        """Loss rel, each leaf's largest difference over its own max |g|
+        (the worst and the three worst), cosine over all leaves."""
+        rel = [((b - a).abs().max() / a.abs().max()).item()
+               for a, b in zip(want[1], got[1])]
+        cos = torch.nn.functional.cosine_similarity(
+            torch.cat([g.reshape(-1) for g in want[1]]),
+            torch.cat([g.reshape(-1) for g in got[1]]), dim=0).item()
+        return {"loss_rel": abs(got[0] - want[0]) / want[0],
+                "leaf_rel_max": max(rel), "cosine": cos,
+                "worst": sorted(zip(rel, names), reverse=True)[:3]}
+
+    def curve(model, dev, exact=False) -> list:
+        opt = ts.make_optimizer(1e-4)
+        state = ts.init_train_state(copy.deepcopy(model).to(dev), opt)
+        losses = []
+        with exact_if(exact):
+            for i in range(TRAIN_CHECK_STEPS):
+                x, y = (v.to(dev) for v in batches[i % 2])
+                losses.append(ts.train_step(state, x, y, opt,
+                                            log1p_features=True))
+        return [float(v) for v in losses]
+
+    def steps_rel(a, b) -> list:
+        return [abs(u - v) / u for u, v in zip(a, b)]
+
+    def steps_from_card_state(model) -> list:
+        """TRAIN_CHECK_STEPS exact-products steps on the card; before
+        each, the CPU computes the same step from a copy of the card's
+        parameters: [compare] per step."""
+        opt = ts.make_optimizer(1e-4)
+        state = ts.init_train_state(copy.deepcopy(model).to("cuda"), opt)
+        params = ts.parameters(state.model)
+        out = []
+        for i in range(TRAIN_CHECK_STEPS):
+            cpu = loss_grads(state.model, "cpu", exact=True, batch=i % 2)
+            x, y = (v.to("cuda") for v in batches[i % 2])
+            with numerics.ExactProducts():
+                loss = ts.loss_fn(state.model, x, y, log1p_features=True)
+                grads = torch.autograd.grad(loss, params)
+            out.append(compare(cpu, (loss.item(), [g.cpu().double()
+                                                   for g in grads])))
+            opt.update(params, list(grads), state.opt_state)
+        return out
+
+    model_ckpt = load_params(CHECKPOINT)
+    ckpt = compare(loss_grads(model_ckpt, "cpu"),
+                   loss_grads(model_ckpt, "cuda"))
+    ckpt_curves = {dev: curve(model_ckpt, dev) for dev in ("cpu", "cuda")}
+    ckpt["steps_loss_rel_max"] = max(steps_rel(ckpt_curves["cpu"],
+                                               ckpt_curves["cuda"]))
+
+    rand = PercepNet(torch.Generator().manual_seed(0))
+    got = {(dev, tag): loss_grads(rand, dev, dtype, exact)
+           for dev in ("cpu", "cuda") for tag, dtype, exact in (
+               ("f32", torch.float32, False), ("f64", torch.float64, False),
+               ("exact", torch.float32, True))}
+    forced = steps_from_card_state(rand)
+    free = {dev: curve(rand, dev, exact=True) for dev in ("cpu", "cuda")}
+    random = {
+        "f32": compare(got["cpu", "f32"], got["cuda", "f32"]),
+        "f64": compare(got["cpu", "f64"], got["cuda", "f64"]),
+        "exact_steps": {
+            "loss_rel": max(c["loss_rel"] for c in forced),
+            "leaf_rel_max": max(c["leaf_rel_max"] for c in forced),
+            "cosine": min(c["cosine"] for c in forced),
+            "per_step": forced},
+        "from_f64": {f"{dev}_{tag}": compare(got["cpu", "f64"],
+                                             got[dev, tag])["leaf_rel_max"]
+                     for dev in ("cpu", "cuda") for tag in ("f32", "exact")},
+        "free_running_exact_steps_rel": steps_rel(free["cpu"],
+                                                  free["cuda"])}
+    # the active (|x| < 9, where f32 tanh is not +-1) conv2 pre-activation
+    # with the largest terms for its size, on each device
+    pre64, mag = conv2_preactivation(rand, batches[0][0], "cpu",
+                                     torch.float64)
+    cond = torch.where(pre64.abs() < 9, mag / pre64.abs().clamp_min(1e-3),
+                       torch.zeros_like(mag))
+    at = np.unravel_index(int(cond.argmax()), tuple(cond.shape))
+    random["conv2_worst_element"] = {
+        "at": [int(i) for i in at], "sum_abs_terms": mag[at].item(),
+        "condition": cond[at].item(), "f64": pre64[at].item(),
+        **{dev: conv2_preactivation(rand, batches[0][0], dev,
+                                    torch.float32)[0][at].item()
+           for dev in ("cpu", "cuda")}}
+    check_s = time.perf_counter() - t0
+
+    out = {"shape": list(TRAIN_SHAPE), "card": smi, "bench_s": bench_s,
+           "check_s": check_s,
+           "remat": {k: timed[k] for k in (
+               "step_ms", "value", "peak_allocated_bytes", "flops_per_step",
+               "bound_ms", "steps", "loss")},
+           "no_remat": {k: no_remat[k] for k in (
+               "step_ms", "value", "peak_allocated_bytes", "flops_per_step",
+               "bound_ms", "steps")},
+           "check_shape": list(TRAIN_CHECK_SHAPE),
+           "checkpoint": ckpt, "random_init": random,
+           "curves": {"checkpoint": ckpt_curves,
+                      "random_init_exact_free_running": free},
+           "bounds": {"loss_rel": TRAIN_LOSS_REL,
+                      "grad_leaf_rel": TRAIN_GRAD_REL,
+                      "grad_cosine": TRAIN_GRAD_COS,
+                      "steps_loss_rel": TRAIN_STEPS_REL}}
+    emit("train", **out)
+    held = {"checkpoint": (ckpt, True, True),
+            "random init, f32": (random["f32"], False, False),
+            "random init, f64": (random["f64"], True, False),
+            f"random init, exact products, {TRAIN_CHECK_STEPS} steps "
+            "from the card's state": (random["exact_steps"], True, False)}
+    for what, (res, leaves, steps) in held.items():
+        require(res["loss_rel"] <= TRAIN_LOSS_REL,
+                f"{what}: train loss card vs CPU {res['loss_rel']:.3g} > "
+                f"{TRAIN_LOSS_REL}")
+        require(res["cosine"] >= TRAIN_GRAD_COS,
+                f"{what}: train gradient cosine {res['cosine']:.6f}")
+        if leaves:
+            require(res["leaf_rel_max"] <= TRAIN_GRAD_REL,
+                    f"{what}: train gradient leaf card vs CPU "
+                    f"{res['leaf_rel_max']:.3g} > {TRAIN_GRAD_REL}")
+        if steps:
+            require(res["steps_loss_rel_max"] <= TRAIN_STEPS_REL,
+                    f"{what}: {TRAIN_CHECK_STEPS} steps' losses card vs "
+                    f"CPU {res['steps_loss_rel_max']:.3g} > "
+                    f"{TRAIN_STEPS_REL}")
+    return out
+
+
+def jax_checkpoint_keys() -> dict[str, str]:
+    """The keys and dtypes of the JAX package's checkpoint of a PercepNet
+    under make_optimizer(): optax's apply_if_finite around adam."""
+    from percepnet_tpu_torch.models.percepnet import LAYERS
+    keys = {"step": "int32", "opt_state/notfinite_count": "int32",
+            "opt_state/last_finite": "bool",
+            "opt_state/total_notfinite": "int32",
+            "opt_state/inner_state/0/count": "int32"}
+    for layer, leaves in LAYERS.items():
+        for leaf in leaves:
+            for prefix in ("params", "opt_state/inner_state/0/mu",
+                           "opt_state/inner_state/0/nu"):
+                keys[f"{prefix}/{layer}/{leaf}"] = "float32"
+    return keys
+
+
+def phase_train_chain(tmp: pathlib.Path, smi: str) -> dict:
+    """Records to a trained model on the card through the commands:
+    featgen -> split-dataset -> train -> resume -> enhance."""
+    import torch
+    from percepnet_tpu_torch.ops import comb
+
+    cs, ns = quality_pairs(CHAIN_PAIRS, np.random.default_rng(20261020))
+    lines = []
+    for i in range(CHAIN_PAIRS):
+        pair = [tmp / f"c{i}.pcm", tmp / f"n{i}.pcm"]
+        for path, x in zip(pair, (cs[i], ns[i])):
+            np.trunc(np.clip(x, -32768, 32767)).astype("<i2").tofile(path)
+        lines.append(f"{pair[0]} {pair[1]}")
+    (tmp / "pairs.txt").write_text("\n".join(lines) + "\n")
+    launches, seconds = {}, {}
+    comb.reset_launches()
+    t0 = time.perf_counter()
+    dispatch("featgen", "--pairs-file", str(tmp / "pairs.txt"), "--out-dir",
+             str(tmp / "feats"), "--count", str(CHAIN_FRAMES), "--batch",
+             str(CHAIN_PAIRS))
+    torch.cuda.synchronize()
+    seconds["featgen"] = time.perf_counter() - t0
+    launches["featgen"] = launched("train_chain_featgen", "f32")
+    require(launches["featgen"] > 0, "the chain's featgen launched B1")
+    dispatch("split-dataset", str(tmp / "feats"), "--out-dir",
+             str(tmp / "lists"))
+
+    def train(out_dir: str, steps: int) -> float:
+        comb.reset_launches()
+        t0 = time.perf_counter()
+        dispatch("train", "--train-filelist",
+                 str(tmp / "lists" / "train_filelist.txt"),
+                 "--dev-filelist", str(tmp / "lists" / "dev_filelist.txt"),
+                 "--out-dir", str(tmp / out_dir), "--batch-size",
+                 str(CHAIN_BATCH), "--seq-len", str(CHAIN_SEQ),
+                 "--max-steps", str(steps), "--log-interval", "1",
+                 "--no-tensorboard")
+        return time.perf_counter() - t0
+
+    seconds["train"] = train("exp", CHAIN_STEPS)
+    with open(tmp / "exp" / "history.jsonl") as f:
+        losses = [json.loads(ln)["loss"] for ln in f]
+    first, last5 = losses[0], float(np.mean(losses[-5:]))
+    with np.load(tmp / "exp" / f"checkpoint-{CHAIN_STEPS}.npz") as z:
+        keys = {k: str(z[k].dtype) for k in z.files}
+    want = jax_checkpoint_keys()
+    seconds["resume"] = train("exp", CHAIN_STEPS + 1)
+    seconds["whole"] = train("whole", CHAIN_STEPS + 1)
+    name = f"checkpoint-{CHAIN_STEPS + 1}.npz"
+    with np.load(tmp / "exp" / name) as a, np.load(tmp / "whole" / name) as b:
+        differ = sorted(k for k in a.files
+                        if not np.array_equal(a[k], b[k]))
+
+    comb.reset_launches()
+    noisy = tmp / "n0.pcm"
+    dispatch("enhance", str(noisy), str(tmp / "enhanced.pcm"), "--weights",
+             str(tmp / "exp" / name), "--raw-scale", "--dump-gr",
+             str(tmp / "gr.raw"))
+    torch.cuda.synchronize()
+    launches["enhance"] = launched("train_chain_enhance", "f32")
+    require(launches["enhance"] > 0, "the chain's enhance launched B1")
+    enhanced = read_pcm(tmp / "enhanced.pcm")
+    gr = np.fromfile(tmp / "gr.raw", "<f4")
+    n_frames = noisy.stat().st_size // 2 // 480
+    out = {"card": smi, "launches": launches, "seconds": seconds,
+           "s_per_step": seconds["train"] / CHAIN_STEPS,
+           "shape": [CHAIN_BATCH, CHAIN_SEQ], "losses": losses,
+           "first_loss": first, "last5_mean": last5,
+           "checkpoint_keys": len(keys),
+           "keys_as_jax": keys == want,
+           "resume_vs_whole_differ": differ,
+           "enhanced_samples": int(enhanced.size),
+           "gr_finite": bool(np.isfinite(gr).all()),
+           "gr_range": [float(gr.min()), float(gr.max())]}
+    emit("train_chain", **out)
+    require(last5 < first, f"the chain's loss fell: {first} -> {last5}")
+    require(keys == want, "checkpoint-30 has the JAX package's keys and "
+            f"dtypes: {sorted(set(keys) ^ set(want))[:5]}")
+    require(not differ, f"resumed step {CHAIN_STEPS + 1} equals the "
+            f"uninterrupted run: {differ[:5]}")
+    require(enhanced.size == (n_frames - 1) * 480,
+            "enhance wrote the input's frames less the first")
+    require(out["gr_finite"] and gr.size == n_frames * 68
+            and 0.0 <= gr.min() and gr.max() <= 1.0,
+            "the trained model's g/r are finite, in [0, 1]")
     return out
 
 
@@ -1016,9 +1375,12 @@ def main() -> int:
         tmp = pathlib.Path(tmp)
         (tmp / "cli").mkdir()
         (tmp / "featgen").mkdir()
+        (tmp / "chain").mkdir()
         cli = phase_cli_enhance(tmp / "cli", rng, smi)
         feat = phase_featgen(tmp / "featgen", smi)
-    bench_res = phase_bench(smi)
+        bench_res = phase_bench(smi)
+        phase_train(feat["records"], smi)
+        chain = phase_train_chain(tmp / "chain", smi)
     paths = phase_comb_paths(rng)
 
     timed = comb_res["timed"]
@@ -1068,7 +1430,9 @@ def main() -> int:
         "cli_enhance_streaming": cli["launches"]["streaming"],
         "featgen_one_pair": feat["launches"]["one_pair"],
         "featgen_batched": feat["launches"]["batched"],
-        "bench_f32": bench_res["f32"]["comb_launches"]}
+        "bench_f32": bench_res["f32"]["comb_launches"],
+        "train_chain_featgen": chain["launches"]["featgen"],
+        "train_chain_enhance": chain["launches"]["enhance"]}
     kernel_lines[1]["launches_by_path"] = {
         "serve_bf16": serve16["comb_bf16_launches"],
         "cli_enhance_bf16": cli["launches"]["bf16"],

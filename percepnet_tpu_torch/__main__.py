@@ -1,7 +1,8 @@
 """Command dispatcher: python -m percepnet_tpu_torch <command> [args...].
 
 The counterpart of `python -m percepnet_tpu`.  Every command runs on the
-CUDA card unless given --device cpu (bench: on the card only)."""
+CUDA card unless given --device cpu (bench: on the card only;
+split-dataset and bin2h5: host file work)."""
 
 from __future__ import annotations
 
@@ -14,9 +15,12 @@ COMMANDS = {
     "featgen": ("percepnet_tpu_torch.cli.featgen", "main"),
     "export": ("percepnet_tpu_torch.cli.export", "main"),
     "bench": ("percepnet_tpu_torch.bench", "main"),
+    "train": ("percepnet_tpu_torch.cli.train", "main"),
+    "split-dataset": ("percepnet_tpu_torch.cli.data", "split_main"),
+    "bin2h5": ("percepnet_tpu_torch.cli.data", "bin2h5_main"),
 }
 # commands of the JAX package that the port does not have yet
-NOT_PORTED = ("train", "split-dataset", "bin2h5")
+NOT_PORTED: tuple[str, ...] = ()
 
 
 def main(argv=None) -> None:

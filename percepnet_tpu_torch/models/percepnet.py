@@ -29,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from percepnet_tpu_torch import constants as C
 
@@ -160,7 +161,8 @@ class PercepNet(nn.Module):
                 *, act_tanh: Callable = torch.tanh,
                 act_sigmoid: Callable = torch.sigmoid,
                 log1p_features: bool = False,
-                compute_dtype: torch.dtype | None = None):
+                compute_dtype: torch.dtype | None = None,
+                remat: bool = False):
         """Whole-sequence forward pass.
 
         Args:
@@ -175,6 +177,11 @@ class PercepNet(nn.Module):
             take their logits in f32.  Parameters are cast per call
             unless the module already holds that dtype (the server keeps
             a bf16 copy).  None: f32.
+          remat: rematerialize each frame's five-GRU step in backward
+            (torch.utils.checkpoint, the counterpart of JAX's
+            jax.checkpoint on the scan step): only the carried hidden
+            states are kept per frame, and backward recomputes the gates.
+            Training only; inference leaves it off.
         Returns:
           (g [B, T, 34] f32, r [B, T, 34] f32, new_state)
         """
@@ -202,21 +209,30 @@ class PercepNet(nn.Module):
         wi_rb = p["gru_rb"]["wi"]
         pre_rb_conv = torch.matmul(conv_out, wi_rb[_G:]) + p["gru_rb"]["bi"]
 
-        h1, h2, h3, hgb, hrb = (state.h1, state.h2, state.h3, state.h_gb,
-                                state.h_rb)
-        seqs = ([], [], [], [], [])
-        for i in range(t):
-            h1 = _gru_cell(p["gru1"], h1, pre1[:, i], act_sigmoid, act_tanh)
+        def step(h1, h2, h3, hgb, hrb, p1, prbc):
+            h1 = _gru_cell(p["gru1"], h1, p1, act_sigmoid, act_tanh)
             h2 = _gru_cell(p["gru2"], h2, _project(p["gru2"], h1),
                            act_sigmoid, act_tanh)
             h3 = _gru_cell(p["gru3"], h3, _project(p["gru3"], h2),
                            act_sigmoid, act_tanh)
             hgb = _gru_cell(p["gru_gb"], hgb, _project(p["gru_gb"], h3),
                             act_sigmoid, act_tanh)
-            prb = pre_rb_conv[:, i] + torch.matmul(h3, wi_rb[:_G])
+            prb = prbc + torch.matmul(h3, wi_rb[:_G])
             hrb = _gru_cell(p["gru_rb"], hrb, prb, act_sigmoid, act_tanh)
-            for seq, h in zip(seqs, (h1, h2, h3, hgb, hrb)):
+            return h1, h2, h3, hgb, hrb
+
+        hs = (state.h1, state.h2, state.h3, state.h_gb, state.h_rb)
+        seqs = ([], [], [], [], [])
+        for i in range(t):
+            if remat:
+                hs = checkpoint(step, *hs, pre1[:, i], pre_rb_conv[:, i],
+                                use_reentrant=False,
+                                preserve_rng_state=False)   # no dropout
+            else:
+                hs = step(*hs, pre1[:, i], pre_rb_conv[:, i])
+            for seq, h in zip(seqs, hs):
                 seq.append(h)
+        h1, h2, h3, hgb, hrb = hs
         h1s, h2s, h3s, hgbs, hrbs = (torch.stack(s, dim=1) for s in seqs)
 
         w_gb = p["fc_gb"]["w"]

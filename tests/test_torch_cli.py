@@ -264,8 +264,8 @@ def test_dispatcher_exit_codes(argv, code, capsys):
     out = capsys.readouterr()
     if argv == ["--help"]:
         listed = out.out.split("commands:")[1].split()
-        assert listed == ["bench", "enhance", "evaluate", "export",
-                          "featgen"]
+        assert listed == ["bench", "bin2h5", "enhance", "evaluate",
+                          "export", "featgen", "split-dataset", "train"]
     if argv and argv[0] in dispatcher.NOT_PORTED:
         assert "not ported" in out.err
 
@@ -282,7 +282,7 @@ def test_bench_refuses_without_a_card(capsys):
 
 
 @pytest.mark.parametrize("cmd", ["enhance", "featgen", "export",
-                                 "evaluate"])
+                                 "evaluate", "train"])
 def test_commands_raise_without_a_card(cmd, files, tmp_path):
     """Without --device cpu every command asks for the card and raises
     when there is none; nothing falls back to the host."""
@@ -291,7 +291,9 @@ def test_commands_raise_without_a_card(cmd, files, tmp_path):
     argv = {"enhance": [files[0], str(tmp_path / "o.pcm"), *CKPT_FLAGS],
             "featgen": [files[0], files[0], "4", str(tmp_path / "o.f32")],
             "export": [CHECKPOINT, str(tmp_path / "w.npz")],
-            "evaluate": [files[0], files[0]]}[cmd]
+            "evaluate": [files[0], files[0]],
+            "train": ["--train-filelist", files[0], "--out-dir",
+                      str(tmp_path / "exp")]}[cmd]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dispatcher.main([cmd, *argv])
     assert not any(tmp_path.iterdir())

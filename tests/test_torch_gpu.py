@@ -9,6 +9,7 @@ port's own CPU run.  On that machine, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -291,3 +292,49 @@ def test_featgen_on_card_periods_match_golden(cuda, tmp_path):
     rec = np.fromfile(paths[2], "<f4").reshape(-1, C.RECORD_DIM)
     np.testing.assert_array_equal(np.round(rec[:, 68] * 588),
                                   np.round(ref[:, 68] * 588))
+
+
+@pytest.mark.parametrize("start", ["checkpoint", "random_init"])
+def test_train_step_on_card_matches_cpu(cuda, start):
+    """One training step (remat on) with log1p features on the golden
+    records, 2 x 100 with x30 on columns 0:68, on the card against the
+    port's CPU, with chip_smoke.py's bounds: loss 1e-4 relative, each
+    gradient leaf within 1e-2 of its max |g|, cosine over all leaves >=
+    0.9999; the step leaves the counters as a finite step does.  From
+    the round-5 checkpoint as it is; from a random init (seed 0) with
+    every forward product rounded once from f64 on both devices, since
+    there the input stack's f32 gradient depends on the GEMMs' summation
+    order (train/numerics.py).  TF32 stays off for the f32 step."""
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    from percepnet_tpu_torch.train import state as ts
+    from percepnet_tpu_torch.train.numerics import ExactProducts
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with np.load(FEATGEN) as g:
+        rec = g["records"].astype(np.float32)
+    rec[:, :68] *= C.FEATURE_SCALE
+    x = torch.from_numpy(rec[:, :70].reshape(2, 100, 70).copy())
+    y = torch.from_numpy(rec[:, 70:].reshape(2, 100, 68).copy())
+    got = {}
+    for dev in ("cpu", cuda):
+        model = (load_params(CHECKPOINT) if start == "checkpoint" else
+                 PercepNet(torch.Generator().manual_seed(0))).to(dev)
+        with ExactProducts() if start == "random_init" else \
+                contextlib.nullcontext():
+            loss = ts.loss_fn(model, x.to(dev), y.to(dev),
+                              log1p_features=True)
+            grads = torch.autograd.grad(loss, ts.parameters(model))
+            got[str(dev)] = (loss.item(), [g.cpu() for g in grads])
+            opt = ts.make_optimizer(1e-4)
+            state = ts.init_train_state(model, opt)
+            ts.train_step(state, x.to(dev), y.to(dev), opt,
+                          log1p_features=True)
+        assert int(state.step) == 1
+        assert int(state.opt_state["inner_state/0/count"]) == 1
+        assert bool(state.opt_state["last_finite"])
+    (l_cpu, g_cpu), (l_card, g_card) = got["cpu"], got["cuda"]
+    assert abs(l_card - l_cpu) <= 1e-4 * l_cpu
+    for a, b in zip(g_cpu, g_card):
+        assert (a - b).abs().max() <= 1e-2 * a.abs().max()
+    a, b = torch.cat([g.reshape(-1) for g in g_cpu]), \
+        torch.cat([g.reshape(-1) for g in g_card])
+    assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.9999

@@ -1,6 +1,6 @@
 """The port stands alone: neither percepnet_tpu_torch nor chip_smoke.py
-imports JAX or the JAX package, and chip_smoke.py refuses to run without
-a CUDA card or without the repository around it."""
+imports JAX, optax or the JAX package, and chip_smoke.py refuses to run
+without a CUDA card or without the repository around it."""
 
 import ast
 import pathlib
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "percepnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "percepnet_tpu")
 SOURCES = sorted((ROOT / "percepnet_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -38,6 +38,11 @@ def _imported_modules(path: pathlib.Path) -> list[str]:
 def test_sources_found():
     assert len(SOURCES) > 10
     assert (ROOT / "percepnet_tpu_torch" / "csrc" / "comb.cu").exists()
+    pkg = ROOT / "percepnet_tpu_torch"
+    for rel in ("train/loss.py", "train/state.py", "train/checkpoint.py",
+                "train/datasets.py", "train/trainer.py", "cli/train.py",
+                "cli/data.py", "io/native.py"):
+        assert pkg / rel in SOURCES, rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
