@@ -59,10 +59,29 @@ Phases, each printing one JSON progress line:
            has the JAX package's keys and dtypes, a resumed 31st step
            equals an uninterrupted 31-step run bit for bit, and enhance
            runs with checkpoint-31;
+  serve_mesh  StreamingServer(mesh=...) at 64 slots, 8 streams spread
+           over the slots, f32 and bf16 with the int16 wire: a 1-shard
+           mesh bit for bit against the plain server, a 2-shard mesh on
+           the one card (cuda:0 twice: B1 at 32 x 1 per shard per tick)
+           within tests/test_parallel.py's mesh bounds; then the
+           float-wire 2-shard servers at raw int16 amplitude against the
+           plain ones, held to serve_raw's bounds; ticks/s and latency;
+  train_dp  data-parallel training at full width on the chain's records:
+           (a) `train --distributed` in a real NCCL group of one
+           (localhost coordinator) against the same run without
+           --distributed, checkpoint-4 bit for bit; (b) two ranks on the
+           one card in a gloo group (NCCL refuses two ranks on one
+           device), 4 x 100 each from the round-5 checkpoint with log1p
+           features, against one rank at 8 x 100 fed both ranks' batches
+           in rank order (tests/test_distributed.py's bounds); ms per step
+           and the all-reduce's ms (CUDA events) of each;
   comb_paths  B1 bit for bit at every shape a driven path launched it.
 Then a `kernels` line and, last, the result line.  Any failed check
 raises and the script exits non-zero without a result line; so does a
 machine without a CUDA card.
+
+`python3 chip_smoke.py --dp-worker CONFIG.json` is one rank of train_dp
+(b), started by the script itself.
 """
 
 from __future__ import annotations
@@ -71,8 +90,11 @@ import contextlib
 import copy
 import io
 import json
+import os
 import pathlib
+import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -146,6 +168,15 @@ TRAIN_CHECK_STEPS, TRAIN_STEPS_REL = 8, 1e-3
 # the chain: featgen's pairs and frames, then train's batch, length, steps
 CHAIN_PAIRS, CHAIN_FRAMES = 16, 200
 CHAIN_BATCH, CHAIN_SEQ, CHAIN_STEPS = 8, 100, 30
+# serving over a mesh: the 2-shard server against the plain one, of full
+# scale (tests/test_parallel.py: f32 2e-4, bf16 5e-3), on the int16 wire
+MESH_CAPACITY, MESH_STREAMS = 64, 8
+MESH_PCM_TOL = {"f32": 2e-4, "bf16": 5e-3}
+# data parallel: global batch, length, steps; two ranks against one
+# (tests/test_distributed.py: every checkpoint array, and the losses)
+DP_BATCH, DP_SEQ, DP_STEPS, DP_RANKS = 8, 100, 4, 2
+DP_RTOL, DP_ATOL, DP_LOSS_ABS = 2e-5, 2e-6, 1e-5
+DP_WORKER_TIMEOUT_S = 400
 
 
 START = time.perf_counter()
@@ -495,13 +526,25 @@ def phase_batch_bf16(model_cpu, clean: np.ndarray, noisy: np.ndarray,
     return out
 
 
-def run_ticks(srv, sig: np.ndarray) -> dict:
+def attach_spread(srv, n_streams: int) -> list[int]:
+    """n_streams streams on slots spread evenly over the capacity (every
+    shard of a mesh serves some): attach every slot, detach the rest."""
+    every = [srv.attach() for _ in range(srv.capacity)]
+    keep = every[:: srv.capacity // n_streams][:n_streams]
+    for sid in set(every) - set(keep):
+        srv.detach(sid)
+    return keep
+
+
+def run_ticks(srv, sig: np.ndarray, sids: list[int] | None = None) -> dict:
     """Attach one stream per row of sig (samples in the server's wire
-    type), feed them one frame per tick, then the flush; returns the
-    slots, each stream's output, each tick's host time and the total."""
+    type), or take `sids`, feed them one frame per tick, then the flush;
+    returns the slots, each stream's output, each tick's host time and
+    the total."""
     n_streams, n = sig.shape
     n_ticks = n // 480
-    sids = [srv.attach() for _ in range(n_streams)]
+    if sids is None:
+        sids = [srv.attach() for _ in range(n_streams)]
     got = {sid: [] for sid in sids}
     tick_s = []
     t0 = time.perf_counter()
@@ -1312,6 +1355,422 @@ def phase_train_chain(tmp: pathlib.Path, smi: str) -> dict:
     return out
 
 
+def phase_serve_mesh(model_cpu, sig: np.ndarray) -> dict:
+    """StreamingServer(mesh=...) on the card against the plain server,
+    each with MESH_STREAMS streams spread over MESH_CAPACITY slots: on
+    the int16 wire at /32768 scale, f32 and bf16, the 1-shard mesh bit
+    for bit and the 2-shard mesh (cuda:0 twice) within MESH_PCM_TOL of
+    full scale; then on the float wire at raw int16 amplitude, the
+    2-shard f32 and bf16 servers within serve_raw's bounds."""
+    import torch
+    from percepnet_tpu_torch import parallel
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.serve import StreamingServer
+
+    model = copy.deepcopy(model_cpu).to("cuda")
+    meshes = {"plain": None, "mesh1": ["cuda:0"],
+              "mesh2": ["cuda:0", "cuda:0"]}
+    pcm16 = np.trunc(np.clip(sig * 32768.0, -32768, 32767)).astype(np.int16)
+    raw = sig[:, : 50 * 480] * 32768.0
+
+    def serve(tag, dtype, name, wire_int16, x):
+        kw = {"mesh": parallel.make_mesh(meshes[name])} if meshes[name] \
+            else {}
+        srv = StreamingServer(model, capacity=MESH_CAPACITY,
+                              model_dtype=dtype, io_int16=wire_int16,
+                              log1p_features=True, **kw)
+        sids = attach_spread(srv, MESH_STREAMS)
+        comb.reset_launches()
+        res = run_ticks(srv, x, sids)
+        path = ("serve_mesh" + ("_bf16" if tag == "bf16" else "")
+                + ("" if name == "mesh2" else f"_{name}")
+                + ("" if wire_int16 else "_raw"))
+        res["launches"] = launched(path, tag)
+        require(res["launches"] > 0,
+                f"{path}: the {tag} server launched B1 ({tag} store)")
+        return res
+
+    def compare(a, b) -> dict:
+        diff = max(float(np.abs(a["got"][s].astype(np.float64)
+                                - b["got"][s]).max()) for s in a["got"])
+        peak = max(float(np.abs(b["got"][s].astype(np.float64)).max())
+                   for s in b["got"])
+        corr = min(float(np.corrcoef(a["got"][s].astype(np.float64),
+                                     b["got"][s].astype(np.float64))[0, 1])
+                   for s in a["got"])
+        return {"max_err": diff, "peak": peak, "min_corr": corr}
+
+    out = {"capacity": MESH_CAPACITY, "streams": MESH_STREAMS,
+           "bounds_of_full_scale": MESH_PCM_TOL, "launches": {}}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        runs = {name: serve(tag, dtype, name, True, pcm16)
+                for name in meshes}
+        sids = runs["plain"]["sids"]
+        require(sids == runs["mesh2"]["sids"]
+                and {s // (MESH_CAPACITY // 2) for s in sids} == {0, 1},
+                "the streams sit in both shards of the 2-shard mesh")
+        equal1 = all(np.array_equal(runs["mesh1"]["got"][s],
+                                    runs["plain"]["got"][s]) for s in sids)
+        c2 = compare(runs["mesh2"], runs["plain"])
+        out[tag] = {"mesh1_bit_equal": equal1,
+                    "mesh2_vs_plain_lsb": c2,
+                    "bound_lsb": MESH_PCM_TOL[tag] * 32768.0,
+                    **{name: {"launches": r["launches"], **tick_stats(r)}
+                       for name, r in runs.items()}}
+        out["launches"][tag] = runs["mesh2"]["launches"]
+        rr = {name: serve(tag, dtype, name, False, raw)
+              for name in ("plain", "mesh2")}
+        out[tag]["raw_scale"] = {
+            **compare(rr["mesh2"], rr["plain"]),
+            "bound": SERVE_ATOL * 32768.0 if tag == "f32" else SERVE_BF16_LSB,
+            "mesh2_ticks_per_s": tick_stats(rr["mesh2"])["ticks_per_s"]}
+    emit("serve_mesh", **out)
+    for tag in ("f32", "bf16"):
+        r = out[tag]
+        require(r["mesh1_bit_equal"],
+                f"{tag}: the 1-shard mesh server equals the plain one")
+        c2 = r["mesh2_vs_plain_lsb"]
+        require(c2["peak"] > 0 and c2["max_err"] <= r["bound_lsb"],
+                f"{tag}: 2-shard mesh vs plain {c2['max_err']} LSB > "
+                f"{r['bound_lsb']:.4g}")
+        rs = r["raw_scale"]
+        require(rs["peak"] > 0 and rs["max_err"] <= rs["bound"]
+                and rs["min_corr"] >= SERVE_BF16_MIN_CORR,
+                f"{tag}: raw-scale 2-shard mesh vs plain {rs}")
+    return out
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's coordinator."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class AllReduceTimer:
+    """Wraps parallel.mesh.all_reduce_mean_ (the training step's gradient
+    all-reduce): each call between two CUDA events, and its host time.
+    Reads nothing from the card until summary()."""
+
+    def __init__(self):
+        import torch
+        from percepnet_tpu_torch.parallel import mesh as pm
+        self._pm, self._orig = pm, pm.all_reduce_mean_
+        self.events, self.host_s, self.floats = [], [], 0
+
+        def timed(tensors):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            self._orig(tensors)
+            end.record()
+            self.host_s.append(time.perf_counter() - t0)
+            self.events.append((start, end))
+            self.floats = sum(t.numel() for t in tensors)
+        pm.all_reduce_mean_ = timed
+
+    def close(self) -> dict:
+        self._pm.all_reduce_mean_ = self._orig
+        import torch
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        return {"calls": len(ms), "floats": self.floats,
+                "ms_median": statistics.median(ms) if ms else None,
+                "host_ms_median": (1e3 * statistics.median(self.host_s)
+                                   if ms else None)}
+
+
+def dp_history(out_dir: pathlib.Path) -> dict:
+    """A run's losses and times from its history.jsonl (one record per
+    step): the mean ms per step from the loop's start, and the mean over
+    the steps after the first (step i ends at i / steps_per_s_i)."""
+    with open(out_dir / "history.jsonl") as f:
+        hist = [json.loads(ln) for ln in f]
+    losses = {r["step"]: r["loss"] for r in hist if "loss" in r}
+    first, last = hist[0], hist[-1]
+    return {"losses": losses,
+            "ms_per_step": 1e3 / last["steps_per_s"],
+            "ms_per_step_after_first": 1e3 * (
+                last["step"] / last["steps_per_s"]
+                - first["step"] / first["steps_per_s"])
+            / (last["step"] - first["step"]),
+            "train_audio_s_per_s": last["train_audio_s_per_s"]}
+
+
+def dp_worker(config_path: str) -> int:
+    """One rank of train_dp (b): join the gloo group on the card, run the
+    train command's body in it once per entry of the config's `runs`
+    (under ExactProducts where asked), and write its timings to the
+    config's `out`."""
+    import torch
+    import torch.distributed as dist
+    from percepnet_tpu_torch.cli import train as cli_train
+    from percepnet_tpu_torch.parallel import mesh as pm
+    from percepnet_tpu_torch.train import numerics
+    cfg = json.loads(pathlib.Path(config_path).read_text())
+    dev = pm.init_distributed(cfg["coordinator"], cfg["world"], cfg["rank"],
+                              "cuda", backend="gloo")
+    out = {"rank": cfg["rank"], "device": str(dev),
+           "backend": dist.get_backend()}
+    try:
+        for run in cfg["runs"]:
+            timer = AllReduceTimer()
+            t0 = time.perf_counter()
+            with (numerics.ExactProducts() if run["exact"]
+                  else contextlib.nullcontext()):
+                cli_train.train(
+                    cli_train.build_parser().parse_args(run["argv"]), dev)
+            torch.cuda.synchronize()
+            out[run["name"]] = {"seconds": time.perf_counter() - t0,
+                                "all_reduce": timer.close()}
+        pm.barrier()
+    finally:
+        pm.shutdown()
+    pathlib.Path(cfg["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def dp_excess(got: pathlib.Path, want: pathlib.Path) -> tuple[str, float]:
+    """The checkpoint array and value of the largest |got - want| -
+    DP_RTOL |want| (within DP_ATOL is within the bounds); raises unless
+    both hold the same keys."""
+    with np.load(got) as a, np.load(want) as b:
+        require(set(a.files) == set(b.files),
+                f"{got} and {want} hold the same arrays")
+        over = {}
+        for k in b.files:
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            over[k] = float(np.max(np.abs(x - y) - DP_RTOL * np.abs(y)))
+    return max(over.items(), key=lambda kv: kv[1])
+
+
+def f64_steps(batches: list, path: pathlib.Path) -> None:
+    """DP_STEPS Adam steps in f64 on the card from the round-5 checkpoint
+    over `batches` (log1p features, remat), saved as a checkpoint: what
+    the f32 runs would give in exact arithmetic."""
+    import torch
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    from percepnet_tpu_torch.train import checkpoint as ckpt
+    from percepnet_tpu_torch.train import datasets
+    from percepnet_tpu_torch.train import state as ts
+    from percepnet_tpu_torch.train.loss import percepnet_loss
+    from percepnet_tpu_torch.train.trainer import TrainConfig
+    f64 = torch.float64
+    opt = ts.make_optimizer(TrainConfig().learning_rate)
+    state = ts.init_train_state(load_params(CHECKPOINT).to("cuda", f64), opt)
+    params = ts.parameters(state.model)
+    for batch in batches:
+        x, y = (torch.from_numpy(np.ascontiguousarray(v)).to("cuda", f64)
+                for v in datasets.split_xy(batch))
+        g, r, _ = state.model(x, log1p_features=True, remat=True,
+                              compute_dtype=f64)
+        loss = percepnet_loss(torch.cat([g, r], dim=-1), y)
+        opt.update(params, list(torch.autograd.grad(loss, params)),
+                   state.opt_state)
+        state.step.add_(1)
+    ckpt.save_checkpoint(str(path), state)
+
+
+def phase_train_dp(chain: pathlib.Path, smi: str) -> dict:
+    """Data-parallel training on the card, on the chain's records (see the
+    module docstring).  (a) an NCCL group of one against no group, bit
+    for bit.  (b) two gloo ranks on the one card against one rank fed
+    both ranks' batches in rank order, from the round-5 checkpoint: held
+    to DP_RTOL / DP_ATOL with every forward product rounded once from
+    f64 on both sides (train/numerics.py), since the card's f32 GEMMs
+    round a row's products differently at batch 4 than at 8; and printed
+    in plain f32, beside the plain run's distance from the same steps in
+    f64 (the f32 floor)."""
+    from percepnet_tpu_torch.cli import train as cli_train
+    from percepnet_tpu_torch.parallel import mesh as pm
+    from percepnet_tpu_torch.train import datasets
+    from percepnet_tpu_torch.train import numerics
+    from percepnet_tpu_torch.train.trainer import Trainer, TrainConfig
+
+    # the groups' sockets stay on this host (the workers inherit it)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    filelist = chain / "lists" / "train_filelist.txt"
+    tmp = chain / "dp"
+    name = f"checkpoint-{DP_STEPS}.npz"
+    common = ["--train-filelist", str(filelist), "--seq-len", str(DP_SEQ),
+              "--max-steps", str(DP_STEPS), "--log-interval", "1",
+              "--no-tensorboard"]
+
+    # (a) a real NCCL group of one against no group
+    seen = {}
+    init = pm.init_distributed
+
+    def init_seen(*args, **kw):
+        import torch.distributed as dist
+        dev = init(*args, **kw)
+        seen.update(backend=dist.get_backend(), device=str(dev),
+                    world=dist.get_world_size())
+        return dev
+    pm.init_distributed = init_seen
+    runs_a, seconds_a = {}, {}
+    try:
+        for run, extra in (("plain", []), ("nccl", [
+                "--distributed", "--coordinator", f"localhost:{free_port()}",
+                "--num-processes", "1", "--process-id", "0"])):
+            timer = AllReduceTimer()
+            t0 = time.perf_counter()
+            dispatch("train", *common, "--batch-size", str(DP_BATCH),
+                     "--out-dir", str(tmp / run), *extra)
+            seconds_a[run] = time.perf_counter() - t0
+            runs_a[run] = {**dp_history(tmp / run),
+                           "all_reduce": timer.close()}
+    finally:
+        pm.init_distributed = init
+    with np.load(tmp / "plain" / name) as a, \
+            np.load(tmp / "nccl" / name) as b:
+        differ_a = sorted(k for k in a.files
+                          if not np.array_equal(a[k], b[k]))
+        keys_a = len(a.files)
+
+    # (b) two gloo ranks on the one card, from the round-5 checkpoint,
+    # with exact products, then in plain f32, in one group
+    per_rank = DP_BATCH // DP_RANKS
+    modes = {"exact": True, "f32": False}
+    argv_b = {mode: [*common, "--batch-size", str(per_rank), "--out-dir",
+                     str(tmp / f"gloo_{mode}"), "--pretrain",
+                     str(CHECKPOINT), "--log1p-features", "--device", "cuda"]
+              for mode in modes}
+    coordinator = f"localhost:{free_port()}"
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(DP_RANKS):
+            config = tmp / f"rank{rank}.json"
+            config.write_text(json.dumps({
+                "coordinator": coordinator, "world": DP_RANKS,
+                "rank": rank, "out": str(tmp / f"rank{rank}.out.json"),
+                "runs": [{"name": mode, "exact": exact,
+                          "argv": argv_b[mode]}
+                         for mode, exact in modes.items()]}))
+            log = open(tmp / f"rank{rank}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-worker",
+                 str(config)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    seconds_b = time.perf_counter() - t0
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            print((tmp / f"rank{rank}.log").read_text()[-3000:],
+                  file=sys.stderr)
+        require(p.returncode == 0,
+                f"train_dp rank {rank} exited {p.returncode}")
+    ranks = [json.loads((tmp / f"rank{r}.out.json").read_text())
+             for r in range(DP_RANKS)]
+
+    # one rank at DP_BATCH, fed the ranks' batches in rank order
+    files = datasets.read_filelist(str(filelist))
+    cfg_rank = TrainConfig(batch_size=per_rank, seq_len=DP_SEQ)
+    streams = [cli_train.train_stream(
+        datasets.RecordListDataset(files, DP_SEQ, shard_id=r,
+                                   num_shards=DP_RANKS),
+        files, cfg_rank, r, DP_RANKS, 0) for r in range(DP_RANKS)]
+    batches = [np.concatenate([next(s) for s in streams])
+               for _ in range(DP_STEPS)]
+    one = {}
+    for mode, exact in modes.items():
+        cfg = TrainConfig(batch_size=DP_BATCH, seq_len=DP_SEQ,
+                          train_max_steps=DP_STEPS, log_interval_steps=1,
+                          log1p_features=True,
+                          out_dir=str(tmp / f"one_{mode}"))
+        t1 = time.perf_counter()
+        with (numerics.ExactProducts() if exact
+              else contextlib.nullcontext()):
+            trainer = Trainer(cfg, iter(batches), device="cuda",
+                              tensorboard=False)
+            trainer.load_pretrained(str(CHECKPOINT))
+            trainer.run()
+        one[mode] = {"seconds": time.perf_counter() - t1,
+                     **dp_history(tmp / f"one_{mode}")}
+    f64_steps(batches, tmp / "f64.npz")
+
+    b = {}
+    for mode in modes:
+        hist = dp_history(tmp / f"gloo_{mode}")
+        b[mode] = {
+            "worst_excess_over_rtol": list(dp_excess(
+                tmp / f"gloo_{mode}" / name, tmp / f"one_{mode}" / name)),
+            "loss_max_abs_diff": max(
+                abs(hist["losses"][k] - one[mode]["losses"][k])
+                for k in one[mode]["losses"]),
+            "ms_per_step_after_first": hist["ms_per_step_after_first"],
+            "one_rank_ms_per_step_after_first":
+                one[mode]["ms_per_step_after_first"],
+            "all_reduce": [r[mode]["all_reduce"] for r in ranks],
+            "losses": hist["losses"],
+            "losses_one_rank": one[mode]["losses"],
+            "written": sorted(q.name for q in (tmp / f"gloo_{mode}")
+                              .iterdir())}
+    floor = list(dp_excess(tmp / "one_f32" / name, tmp / "f64.npz"))
+    out = {"card": smi, "shape_global": [DP_BATCH, DP_SEQ],
+           "steps": DP_STEPS,
+           "a_nccl_world1": {
+               "group": seen, "checkpoint_keys": keys_a,
+               "differ_from_plain": differ_a, "seconds": seconds_a,
+               "ms_per_step_after_first": {
+                   k: v["ms_per_step_after_first"]
+                   for k, v in runs_a.items()},
+               "all_reduce": runs_a["nccl"]["all_reduce"],
+               "all_reduce_without_group": runs_a["plain"]["all_reduce"]},
+           "b_gloo_two_ranks": {
+               "ranks": [{k: r[k] for k in ("rank", "device", "backend")}
+                         for r in ranks],
+               "per_rank_batch": per_rank, "seconds": seconds_b,
+               **b, "f32_one_rank_vs_f64_excess": floor},
+           "bounds": {"rtol": DP_RTOL, "atol": DP_ATOL,
+                      "loss_abs": DP_LOSS_ABS}}
+    emit("train_dp", **out)
+    print(f"{smi} | train_dp (a) {seen.get('backend')} world "
+          f"{seen.get('world')} x {DP_BATCH} x {DP_SEQ} | "
+          f"{runs_a['nccl']['ms_per_step_after_first']:.1f} ms per step "
+          f"after the first (plain "
+          f"{runs_a['plain']['ms_per_step_after_first']:.1f}) | all-reduce "
+          f"{runs_a['nccl']['all_reduce']['ms_median']:.3f} ms", flush=True)
+    print(f"{smi} | train_dp (b) {ranks[0]['backend']} {DP_RANKS} ranks x "
+          f"{per_rank} x {DP_SEQ}, f32 | "
+          f"{b['f32']['ms_per_step_after_first']:.1f} ms per step after the "
+          f"first (one rank x {DP_BATCH}: "
+          f"{b['f32']['one_rank_ms_per_step_after_first']:.1f}) | "
+          f"all-reduce {b['f32']['all_reduce'][0]['ms_median']:.3f} ms",
+          flush=True)
+    require(seen.get("backend") == "nccl" and seen.get("world") == 1,
+            f"(a) ran in an NCCL group of one: {seen}")
+    require(runs_a["nccl"]["all_reduce"]["calls"] == DP_STEPS,
+            "(a) the NCCL step all-reduced once per step")
+    require(not differ_a, f"(a) NCCL world 1 equals the plain run: "
+            f"{differ_a[:5]}")
+    require(all(r["backend"] == "gloo" and r["device"] == "cuda:0"
+                for r in ranks), f"(b) gloo ranks on cuda:0: {ranks}")
+    for mode in modes:
+        require(b[mode]["written"] == [name, "config.yml", "history.jsonl"],
+                f"(b) rank 0 alone wrote: {b[mode]['written']}")
+        require(b[mode]["loss_max_abs_diff"] < DP_LOSS_ABS,
+                f"(b, {mode}) losses two ranks vs one "
+                f"{b[mode]['loss_max_abs_diff']:.3g} >= {DP_LOSS_ABS}")
+    worst = b["exact"]["worst_excess_over_rtol"]
+    require(worst[1] <= DP_ATOL,
+            f"(b, exact products) two ranks vs one: {worst} over rtol "
+            f"{DP_RTOL} exceeds atol {DP_ATOL}")
+    return out
+
+
 def phase_comb_paths(rng: np.random.Generator) -> dict:
     """B1 held against its plain version at every shape a driven path
     launched it at: each is one of COMB_CHECK_SHAPES (checked in phase
@@ -1371,6 +1830,7 @@ def main() -> int:
     serve16 = phase_serve_bf16(model_cpu, serve_sig, serve)
     phase_serve_raw(model_cpu, serve_sig[:, : 50 * 480])
     phase_profile(model_cpu, serve_sig, serve["tick_ms_median"])
+    mesh = phase_serve_mesh(model_cpu, serve_sig)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         (tmp / "cli").mkdir()
@@ -1381,6 +1841,7 @@ def main() -> int:
         bench_res = phase_bench(smi)
         phase_train(feat["records"], smi)
         chain = phase_train_chain(tmp / "chain", smi)
+        phase_train_dp(tmp / "chain", smi)
     paths = phase_comb_paths(rng)
 
     timed = comb_res["timed"]
@@ -1432,9 +1893,11 @@ def main() -> int:
         "featgen_batched": feat["launches"]["batched"],
         "bench_f32": bench_res["f32"]["comb_launches"],
         "train_chain_featgen": chain["launches"]["featgen"],
-        "train_chain_enhance": chain["launches"]["enhance"]}
+        "train_chain_enhance": chain["launches"]["enhance"],
+        "serve_mesh": mesh["launches"]["f32"]}
     kernel_lines[1]["launches_by_path"] = {
         "serve_bf16": serve16["comb_bf16_launches"],
+        "serve_mesh_bf16": mesh["launches"]["bf16"],
         "cli_enhance_bf16": cli["launches"]["bf16"],
         "bench_bf16": bench_res["bf16"]["comb_launches"]}
     # every (B, T) a driven path gave B1, each checked bit for bit
@@ -1451,4 +1914,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

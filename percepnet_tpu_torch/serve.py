@@ -20,6 +20,13 @@ With frames_per_tick=N, `submit` stages N*480 samples per stream and
 The bf16 serving tier, with int16 PCM on the wire:
     srv = StreamingServer(model, capacity=64, model_dtype=torch.bfloat16,
                           io_int16=True, log1p_features=True)
+
+Over a device mesh (JAX's StreamingServer(mesh=...)): the slots split
+into len(mesh) contiguous blocks, one per shard device, each with its
+own copy of the model and its own PipelineState; a tick launches every
+shard's enhance_chunk before it copies any result back:
+    srv = StreamingServer(model, capacity=64,
+                          mesh=parallel.make_mesh())   # every card
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from percepnet_tpu_torch import constants as C
 from percepnet_tpu_torch import pipeline
 from percepnet_tpu_torch.ops.activations import sigmoid_approx, tansig_approx
 from percepnet_tpu_torch.ops.dispatch import resolve_device, resolve_impl
+from percepnet_tpu_torch.parallel import mesh as pm
 
 
 class StreamingServer:
@@ -63,35 +71,51 @@ class StreamingServer:
           /32768 scaling and the C-cast truncation of the output (clip to
           the int16 range, round toward zero) happen on the device.
         device: the card unless 'cpu'.
-        mesh: not ported yet (it needs several cards); raises
-          NotImplementedError when given.
+        mesh: a parallel.Mesh: the slots shard over its devices
+          (capacity must divide by len(mesh)) and the model is copied to
+          each; `device` must then be None.  Without one, the server runs
+          on `device` with the model it is given.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingServer(mesh=...) is not ported yet")
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        if mesh is not None and capacity % len(mesh):
+            raise ValueError(f"capacity {capacity} does not divide across "
+                             f"a mesh of {len(mesh)}")
         if model_dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"model_dtype must be None, torch.float32 or "
                              f"torch.bfloat16, got {model_dtype!r}")
         if frames_per_tick < 1:
             raise ValueError(f"frames_per_tick must be >= 1, got "
                              f"{frames_per_tick}")
-        self.device = resolve_device(device)
         self.capacity = capacity
         self.frames_per_tick = frames_per_tick
         self.model_dtype = model_dtype or torch.float32
         self.io_int16 = io_int16
-        self._kw: dict = {"impl": resolve_impl(None, self.device),
-                          "log1p_features": log1p_features}
+        self._kw: dict = {"log1p_features": log1p_features}
         if compat:
             self._kw.update(act_tanh=tansig_approx,
                             act_sigmoid=sigmoid_approx)
-        if self.model_dtype == torch.bfloat16:
-            # cast once here, so that no tick pays for it
-            model = copy.deepcopy(model).to(self.model_dtype)
+        bf16 = self.model_dtype == torch.bfloat16
+        if bf16:
             self._kw["compute_dtype"] = self.model_dtype
-        self.model = model
-        self._state = pipeline.init_pipeline_state(
-            capacity, model_dtype=self.model_dtype, device=self.device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = pm.Mesh((self.device,))
+            # bf16: cast once here, so that no tick pays for it
+            self._models = [copy.deepcopy(model).to(self.model_dtype)
+                            if bf16 else model]
+        else:
+            self.device = None
+            self._models = [m.to(self.model_dtype)
+                            for m in pm.replicate(mesh, model)]
+        self.mesh = mesh
+        self.model = self._models[0]
+        self._ranges = pm.batch_sharding(mesh, capacity)
+        self._impls = [resolve_impl(None, d) for d in mesh.devices]
+        # one block of capacity / len(mesh) slots per shard
+        self._states = [pipeline.init_pipeline_state(
+            sl.stop - sl.start, model_dtype=self.model_dtype, device=d)
+            for sl, d in zip(self._ranges, mesh.devices)]
         self._free = list(range(capacity))[::-1]
         self._active: set[int] = set()
         self._inbuf = np.zeros((capacity, frames_per_tick * C.FRAME_SIZE),
@@ -111,12 +135,17 @@ class StreamingServer:
         self._active.discard(sid)
         self._free.append(sid)
 
+    def _shard_of(self, sid: int) -> tuple[int, int]:
+        """A slot id's (shard, slot within the shard)."""
+        return divmod(sid, self.capacity // len(self.mesh))
+
     @torch.no_grad()
     def _reset_slot(self, sid: int) -> None:
-        """Zero one slot's state on the device, leaving the others."""
-        st = self._state
+        """Zero one slot's state on its device, leaving the others."""
+        shard, local = self._shard_of(sid)
+        st = self._states[shard]
         for t in (*st.front, *st.model, st.synthesis_mem):
-            t[sid] = 0
+            t[local] = 0
         self._inbuf[sid] = 0.0
 
     # --- ticking ----------------------------------------------------------
@@ -132,24 +161,29 @@ class StreamingServer:
         self._inbuf[sid, len(frame):] = 0.0
 
     def step(self) -> dict[int, np.ndarray]:
-        """Advance every stream frames_per_tick frames in one batched
-        call; returns {sid: enhanced samples [frames_per_tick*480]}, f32
-        or, with io_int16, int16.
+        """Advance every stream frames_per_tick frames, one batched call
+        per shard; returns {sid: enhanced samples [frames_per_tick*480]},
+        f32 or, with io_int16, int16.
 
         Slots without a submitted frame step on silence (their state still
-        advances, like a dropped packet).
+        advances, like a dropped packet).  Every shard's call is launched
+        before any result is copied back.
         """
-        signal = torch.from_numpy(self._inbuf).to(self.device)
-        if self.io_int16:
-            signal = signal.to(torch.float32) * (1.0 / 32768.0)
-        pcm, self._state = pipeline.enhance_chunk(
-            self.model, signal, self._state, device=self.device, **self._kw)
-        if self.io_int16:
-            # the C cast: float -> int truncates toward zero in torch too
-            pcm = torch.clamp(pcm * 32768.0, -32768.0, 32767.0).to(
-                torch.int16)
+        pcms = []
+        for i, (sl, dev) in enumerate(zip(self._ranges, self.mesh.devices)):
+            signal = torch.from_numpy(self._inbuf[sl]).to(dev)
+            if self.io_int16:
+                signal = signal.to(torch.float32) * (1.0 / 32768.0)
+            pcm, self._states[i] = pipeline.enhance_chunk(
+                self._models[i], signal, self._states[i], impl=self._impls[i],
+                device=dev, **self._kw)
+            if self.io_int16:
+                # the C cast: float -> int truncates toward zero in torch
+                pcm = torch.clamp(pcm * 32768.0, -32768.0, 32767.0).to(
+                    torch.int16)
+            pcms.append(pcm)
         self._inbuf[:] = 0.0
-        out = pcm.cpu().numpy()
+        out = np.concatenate([p.cpu().numpy() for p in pcms])
         return {sid: out[sid] for sid in self._active}
 
     @staticmethod

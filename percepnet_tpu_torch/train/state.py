@@ -13,6 +13,18 @@ so a checkpoint moves between the two packages as it is
 Nothing in a step waits for the device: whether the gradient is finite is
 a 0-d bool tensor, and the skip is a `torch.where` over the update and the
 moments, as JAX's `lax.cond` decides inside the graph.
+
+Data parallel: in a `torch.distributed` process group (one process per
+card, parallel.mesh.init_distributed), `train_step` averages the
+gradients and the loss over the ranks with one bucketed all-reduce
+(parallel.mesh.all_reduce_mean_) between `torch.autograd.grad` and the
+optimizer, as JAX's jitted step averages the global batch's gradient.
+Every rank then holds the same gradient, so the global-norm clip and
+the non-finite skip decide alike everywhere, still without a host sync.
+The model is not wrapped in DistributedDataParallel: its reducer fires
+as `.grad` accumulates, and this step takes its gradients with
+`torch.autograd.grad` under per-frame `torch.utils.checkpoint`, which
+the reducer would not see.  With no group the step is unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import dataclasses
 import torch
 
 from percepnet_tpu_torch.models.percepnet import LAYERS, PercepNet
+from percepnet_tpu_torch.parallel import mesh as pm
 from percepnet_tpu_torch.train.loss import percepnet_loss
 
 # JAX's leaf order: PercepNetParams fields, each dict's keys sorted
@@ -163,14 +176,17 @@ def train_step(state: TrainState, features: torch.Tensor,
                targets: torch.Tensor, opt: _Optimizer,
                gain_mse_weight: float = 0.0, log1p_features: bool = False,
                remat: bool = True) -> torch.Tensor:
-    """One step in place; returns the step's loss, still on the device."""
+    """One step in place; returns the step's loss, still on the device:
+    in a process group, the mean of the ranks' losses."""
     params = parameters(state.model)
     loss = loss_fn(state.model, features, targets, gain_mse_weight,
                    log1p_features, remat)
-    grads = torch.autograd.grad(loss, params)
-    opt.update(params, list(grads), state.opt_state)
+    grads = list(torch.autograd.grad(loss, params))
+    loss = loss.detach()
+    pm.all_reduce_mean_([*grads, loss])
+    opt.update(params, grads, state.opt_state)
     state.step.add_(1)
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()

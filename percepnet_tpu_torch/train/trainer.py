@@ -1,10 +1,18 @@
-"""Training loop on one CUDA card: interval-driven train / eval / log /
-save, the port's counterpart of percepnet_tpu/train/trainer.py.
+"""Training loop: interval-driven train / eval / log / save, the port's
+counterpart of percepnet_tpu/train/trainer.py.
 
 Mirrors the reference Trainer (rnn_train.py:261-489): a step loop to
 train_max_steps with eval, save and log intervals, but with full-state
-checkpoints in the JAX package's format (train.checkpoint).  One card;
-data parallelism is not ported yet.
+checkpoints in the JAX package's format (train.checkpoint).
+
+Data parallel is one process per card in a `torch.distributed` group
+(parallel.mesh.init_distributed; `train --distributed`), where JAX runs
+one SPMD program over an in-process mesh.  What the rank changes
+follows JAX's Trainer: the state is broadcast from rank 0 after init,
+restore and load_pretrained; each step averages the ranks' gradients
+(train.state.train_step); evaluate averages over the ranks; only rank 0
+writes config.yml, history.jsonl, TensorBoard and checkpoints; and
+train_audio_s_per_s counts every rank's batch.
 
 Config keys and defaults follow utils/DNS_Challenge.yaml.
 """
@@ -25,6 +33,7 @@ import torch
 
 from percepnet_tpu_torch.models.percepnet import PercepNet
 from percepnet_tpu_torch.ops.dispatch import resolve_device
+from percepnet_tpu_torch.parallel import mesh as pm
 from percepnet_tpu_torch.train import checkpoint as ckpt
 from percepnet_tpu_torch.train import datasets
 from percepnet_tpu_torch.train import state as ts
@@ -74,8 +83,8 @@ class TrainConfig:
 
 
 class Trainer:
-    """Step-driven trainer on one device; resumable from full-state
-    checkpoints."""
+    """Step-driven trainer on one device per process; resumable from
+    full-state checkpoints."""
 
     def __init__(self, config: TrainConfig,
                  train_iter: Iterator[np.ndarray],
@@ -83,21 +92,48 @@ class Trainer:
                  tensorboard: bool = True,
                  device_data: np.ndarray | None = None,
                  device_dev: np.ndarray | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh: pm.Mesh | None = None):
         """device_data/device_dev: optional [N, T, 138] record arrays kept
         resident on the device (datasets.load_all_chunks).  With
         device_data set, `train_iter` must yield int32 INDEX batches
         (datasets.index_iterator) and `dev_batches` index batches into
-        device_dev: only indices cross from the host per step.
-        device: the card unless "cpu" is asked for; raises without one."""
+        device_dev: only indices cross from the host per step.  One
+        process only, as in JAX: in a process group each rank's loader
+        yields its own shard of the records.
+        device: the card unless "cpu" is asked for; raises without one.
+        mesh: a 1-device mesh names the device; several devices raise
+        (data parallel runs one process per card: `train
+        --distributed`).
+        In a process group, train_iter yields this rank's local batches
+        of config.batch_size; the global batch is their concatenation in
+        rank order."""
+        if mesh is not None:
+            if len(mesh) != 1:
+                raise ValueError(
+                    f"Trainer(mesh=) over {len(mesh)} devices: data-"
+                    f"parallel training runs one process per card in a "
+                    f"process group (python -m percepnet_tpu_torch train "
+                    f"--distributed), not an in-process mesh")
+            if device is not None and torch.device(device) != \
+                    mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
+        if device_data is not None and pm.process_count() > 1:
+            raise ValueError("a device-resident corpus is single-process "
+                             "only: in a process group each rank loads its "
+                             "own shard")
         self.config = config
         self.train_iter = train_iter
         self.dev_batches = dev_batches or []
         self.device = resolve_device(device)
+        self.mesh = pm.Mesh((self.device,))
         self.opt = ts.make_optimizer(config.learning_rate,
                                      config.grad_clip_norm)
         model = PercepNet(torch.Generator().manual_seed(config.seed))
         self.state = ts.init_train_state(model.to(self.device), self.opt)
+        self._broadcast_state()
         self._device_mode = device_data is not None
         steps = (ts.make_index_steps if self._device_mode
                  else ts.make_steps)
@@ -113,7 +149,7 @@ class Trainer:
         # TensorBoard scalars + intermediate-result heatmaps, like the
         # reference (rnn_train.py:431-462); optional dependency.
         self._tb = None
-        if tensorboard:
+        if tensorboard and pm.process_index() == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(os.path.join(config.out_dir, "tb"))
@@ -122,14 +158,25 @@ class Trainer:
 
     def _put(self, records: np.ndarray):
         x, y = datasets.split_xy(records)
-        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
+        (shard,) = pm.shard_batch(self.mesh, (np.ascontiguousarray(x),
+                                              np.ascontiguousarray(y)))
+        return shard
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, optimizer state and step on every rank
+        (JAX's pm.replicate); nothing without a process group."""
+        st = self.state
+        pm.broadcast_([*ts.parameters(st.model),
+                       *(st.opt_state[k] for k in sorted(st.opt_state)),
+                       st.step])
 
     def _indices(self, idx: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(idx, np.int64)).to(self.device)
 
     def _record(self, rec: dict[str, Any]) -> None:
         self.history.append(rec)
+        if pm.process_index() != 0:
+            return
         path = os.path.join(self.config.out_dir, "history.jsonl")
         os.makedirs(self.config.out_dir, exist_ok=True)
         with open(path, "a") as f:
@@ -164,8 +211,11 @@ class Trainer:
     def save(self) -> str:
         step = int(self.state.step)
         path = os.path.join(self.config.out_dir, f"checkpoint-{step}.npz")
-        ckpt.save_checkpoint(path, self.state)
-        log.info("saved %s", path)
+        # the state is the same on every rank, so only rank 0 writes (the
+        # ranks share out_dir)
+        if pm.process_index() == 0:
+            ckpt.save_checkpoint(path, self.state)
+            log.info("saved %s", path)
         return path
 
     def restore(self, path: str | None = None) -> bool:
@@ -186,6 +236,7 @@ class Trainer:
             self._load_params(ckpt.load_params_from_checkpoint(path))
             self.state.opt_state = self.opt.init(self.state.model)
             self.state.step.fill_(ckpt.checkpoint_step(path))
+        self._broadcast_state()
         log.info("restored %s (step %d)", path, int(self.state.step))
         return True
 
@@ -198,9 +249,13 @@ class Trainer:
     def load_pretrained(self, params_npz: str) -> None:
         """Warm-start params only (the reference's --pretrain path)."""
         self._load_params(ckpt.load_params_npz(params_npz))
+        self._broadcast_state()
 
     # --- loops --------------------------------------------------------------
     def evaluate(self) -> float:
+        """The dev batches' mean loss; in a process group each batch's
+        loss is the mean over the ranks' local batches (every rank must
+        hold as many dev batches)."""
         if not self.dev_batches:
             return float("nan")
         losses = []
@@ -210,12 +265,15 @@ class Trainer:
                                        self._dev_ya, self._indices(b))
             else:
                 loss = self._eval_step(self.state, *self._put(b))
-            losses.append(float(loss))
-        return float(np.mean(losses))
+            losses.append(loss.reshape(1))
+        losses = torch.cat(losses)
+        pm.all_reduce_mean_([losses])
+        return float(np.mean(losses.cpu().numpy().astype(np.float64)))
 
     def run(self) -> None:
         cfg = self.config
-        cfg.dump(os.path.join(cfg.out_dir, "config.yml"))
+        if pm.process_index() == 0:
+            cfg.dump(os.path.join(cfg.out_dir, "config.yml"))
         step = int(self.state.step)
         t0, steps0 = time.time(), step
 
@@ -283,8 +341,9 @@ class Trainer:
                 if step % cfg.log_interval_steps == 0:
                     dt = time.time() - t0
                     sps = (step - steps0) / max(dt, 1e-9)
-                    audio_s = (sps * cfg.batch_size * cfg.seq_len * 480
-                               / 48_000)
+                    # the global batch: cfg.batch_size is per process
+                    audio_s = (sps * cfg.batch_size * pm.process_count()
+                               * cfg.seq_len * 480 / 48_000)
                     rec = {"step": step, "loss": float(loss),
                            "steps_per_s": round(sps, 3),
                            "train_audio_s_per_s": round(audio_s, 1)}

@@ -338,3 +338,78 @@ def test_train_step_on_card_matches_cpu(cuda, start):
     a, b = torch.cat([g.reshape(-1) for g in g_cpu]), \
         torch.cat([g.reshape(-1) for g in g_card])
     assert torch.nn.functional.cosine_similarity(a, b, dim=0) >= 0.9999
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16"])
+def test_one_shard_mesh_server_on_card_equals_plain_server(cuda, tier):
+    """StreamingServer(mesh=make_mesh(['cuda:0'])) launches B1 and gives
+    the plain server's output bit for bit (same batch, same calls), on
+    the int16 wire; a 2-shard mesh on the one card launches B1 once per
+    shard per tick at capacity / 2."""
+    from percepnet_tpu_torch.parallel import make_mesh
+    dtype = torch.bfloat16 if tier == "bf16" else None
+    model = PercepNet(torch.Generator().manual_seed(0)).to(cuda)
+    pcm16 = np.trunc(np.clip(_noisy(2, 8, seed=11) * 32768, -32768,
+                             32767)).astype(np.int16)
+    outs = []
+    for mesh in (None, ["cuda:0"], ["cuda:0", "cuda:0"]):
+        kw = {"mesh": make_mesh(mesh)} if mesh else {}
+        srv = StreamingServer(model, capacity=4, model_dtype=dtype,
+                              io_int16=True, **kw)
+        sids = [srv.attach() for _ in range(2)]
+        comb.reset_launches()
+        got = {sid: [] for sid in sids}
+        for t in range(8):
+            for i, sid in enumerate(sids):
+                srv.submit(sid, pcm16[i, t * 480:(t + 1) * 480])
+            for sid, frame in srv.step().items():
+                got[sid].append(frame)
+        store = "bf16" if tier == "bf16" else "f32"
+        assert comb.launches[f"windows_{store}"] == 8 * len(mesh or [1])
+        if mesh and len(mesh) == 2:
+            assert {s[1] for s in comb.launch_shapes} == {2}
+        outs.append(np.stack([np.concatenate(got[s]) for s in sids]))
+    assert np.abs(outs[0]).max() > 0
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
+def test_nccl_world_one_train_step_equals_plain_step(cuda):
+    """One training step in an NCCL group of one (the gradient all-reduce
+    and the loss's mean over one rank) leaves the parameters, the
+    optimizer state and the loss bit for bit as the step without a
+    group."""
+    import socket
+    from percepnet_tpu_torch.parallel import mesh as pm
+    from percepnet_tpu_torch.train import state as ts
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 20, 70)).astype(
+        np.float32)).to(cuda)
+    y = torch.from_numpy(rng.uniform(0.05, 0.95, (2, 20, 68)).astype(
+        np.float32)).to(cuda)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    runs = []
+    for group in (False, True):
+        if group:
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+            pm.init_distributed(f"localhost:{port}", 1, 0, "cuda")
+        try:
+            assert pm.process_count() == 1 and pm.in_group() == group
+            opt = ts.make_optimizer(1e-3)
+            state = ts.init_train_state(
+                PercepNet(torch.Generator().manual_seed(0)).to(cuda), opt)
+            loss = ts.train_step(state, x, y, opt)
+            runs.append((loss.item(), [p.detach().cpu().clone() for p in
+                                       ts.parameters(state.model)],
+                         {k: v.cpu() for k, v in state.opt_state.items()}))
+        finally:
+            if group:
+                pm.shutdown()
+    (l0, p0, o0), (l1, p1, o1) = runs
+    assert l0 == l1
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
+    assert o0.keys() == o1.keys()
+    for k in o0:
+        assert torch.equal(o0[k], o1[k]), k

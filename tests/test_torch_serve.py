@@ -9,6 +9,7 @@ import torch
 from percepnet_tpu_torch import constants as C
 from percepnet_tpu_torch import pipeline
 from percepnet_tpu_torch.models.percepnet import PercepNet
+from percepnet_tpu_torch.parallel import make_mesh
 from percepnet_tpu_torch.serve import StreamingServer
 
 torch.set_num_threads(2)
@@ -121,12 +122,16 @@ def test_server_log1p_and_compat_options_reach_the_model(model):
     np.testing.assert_allclose(outs[0], outs[2], atol=1e-4)
 
 
-@pytest.mark.parametrize("option", [{"mesh": object()},
+@pytest.mark.parametrize("option", [{"mesh": ("cpu",) * 3},
                                     {"model_dtype": torch.float16},
                                     {"model_dtype": torch.float64},
                                     {"frames_per_tick": 0}])
 def test_server_rejects_unported_options(model, option):
-    """mesh is not ported; the server serves f32 and bf16 only."""
-    err = NotImplementedError if "mesh" in option else ValueError
-    with pytest.raises(err):
-        StreamingServer(model, capacity=2, device=CPU, **option)
+    """A mesh must divide the capacity; the server serves f32 and bf16
+    only, at least one frame per tick."""
+    if "mesh" in option:
+        option = {"mesh": make_mesh(option["mesh"])}
+    else:
+        option = {"device": CPU, **option}
+    with pytest.raises(ValueError):
+        StreamingServer(model, capacity=2, **option)

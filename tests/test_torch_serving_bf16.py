@@ -348,7 +348,7 @@ def test_bf16_int16_server_matches_jax_serving_tier(weights):
                           io_int16=True, device=CPU)
     assert next(model.parameters()).dtype == torch.float32
     assert next(srv.model.parameters()).dtype == BF16
-    assert srv._state.model.h1.dtype == BF16
+    assert srv._states[0].model.h1.dtype == BF16
     sid = srv.attach()
     got = _serve(srv, sid, pcm16)
     full = np.zeros((B, pcm16.size), np.float32)
@@ -372,8 +372,8 @@ def test_bf16_server_reattach_starts_from_zero_state(weights):
     srv.detach(a)
     b = srv.attach()
     assert b == a
-    assert all(not t[b].any() for t in srv._state.model)
-    assert srv._state.model.h1.dtype == BF16
+    assert all(not t[b].any() for t in srv._states[0].model)
+    assert srv._states[0].model.h1.dtype == BF16
     np.testing.assert_array_equal(_serve(srv, b, pcm16), first)
 
 

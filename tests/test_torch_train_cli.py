@@ -25,6 +25,9 @@ from percepnet_tpu.train import datasets as j_datasets
 from percepnet_tpu.train.trainer import TrainConfig as JTrainConfig
 from percepnet_tpu.train.trainer import Trainer as JTrainer
 from percepnet_tpu_torch import __main__ as dispatcher
+from percepnet_tpu_torch.cli import train as cli_train
+from percepnet_tpu_torch.parallel import make_mesh
+from percepnet_tpu_torch.parallel import mesh as pm
 from percepnet_tpu_torch.train import checkpoint as ckpt
 from percepnet_tpu_torch.train import datasets
 from percepnet_tpu_torch.train.trainer import Trainer, TrainConfig
@@ -252,13 +255,71 @@ def test_train_command_resume_continues_the_run(feats_dir, tmp_path):
                                    ["--coordinator", "localhost:1234",
                                     "--num-processes", "2",
                                     "--process-id", "0"]])
-def test_train_distributed_is_refused(tmp_path, flags, capsys):
+def test_train_distributed_is_refused(tmp_path, flags, capsys,
+                                      monkeypatch):
+    """What `train` still refuses, exit 2 before anything is written:
+    --distributed with neither --coordinator nor torchrun's environment,
+    and the group's flags without --distributed (JAX ignores them; a run
+    that silently trained alone would be wrong)."""
+    for key in cli_train.ENV_GROUP:
+        monkeypatch.delenv(key, raising=False)
     with pytest.raises(SystemExit) as e:
         dispatcher.main(["train", "--train-filelist", "x.lst", "--device",
                          "cpu", "--out-dir", str(tmp_path), *flags])
     assert e.value.code == 2
-    assert "not ported yet (ROADMAP A15)" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert ("needs --coordinator" in err if "--distributed" in flags
+            else "need --distributed" in err), err
     assert not any(tmp_path.iterdir())
+
+
+def test_train_distributed_reads_torchrun_environment(monkeypatch):
+    args = cli_train.build_parser().parse_args(
+        ["--train-filelist", "x.lst", "--distributed"])
+    for key, value in zip(cli_train.ENV_GROUP,
+                          ("10.0.0.1", "29400", "3", "4")):
+        monkeypatch.setenv(key, value)
+    assert cli_train._group(args) == ("10.0.0.1:29400", 4, 3)
+    args = cli_train.build_parser().parse_args(
+        ["--train-filelist", "x.lst", "--distributed", "--coordinator",
+         "h:1", "--num-processes", "2", "--process-id", "1"])
+    assert cli_train._group(args) == ("h:1", 2, 1)
+
+
+def test_train_distributed_on_a_missing_card_raises(tmp_path):
+    """--distributed --device cuda without a card raises before a group is
+    made; nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dispatcher.main(["train", "--train-filelist", "x.lst", "--device",
+                         "cuda", "--out-dir", str(tmp_path),
+                         "--distributed", "--coordinator", "localhost:1",
+                         "--num-processes", "1", "--process-id", "0"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_trainer_refuses_a_device_corpus_in_a_process_group(monkeypatch,
+                                                            tmp_path):
+    """JAX's Trainer: device-resident data is single-process only."""
+    monkeypatch.setattr(pm, "process_count", lambda: 2)
+    cfg = TrainConfig(out_dir=str(tmp_path), **KW)
+    with pytest.raises(ValueError, match="single-process"):
+        Trainer(cfg, iter(()), device_data=np.zeros((4, 5, 138),
+                                                    np.float32),
+                device="cpu", tensorboard=False)
+
+
+def test_trainer_mesh_is_one_device(tmp_path):
+    """An in-process mesh of several devices is refused, naming
+    --distributed (one process per card); a 1-device mesh names the
+    device."""
+    cfg = TrainConfig(out_dir=str(tmp_path), **KW)
+    with pytest.raises(ValueError, match="--distributed"):
+        Trainer(cfg, iter(()), mesh=make_mesh(["cpu", "cpu"]),
+                tensorboard=False)
+    tr = Trainer(cfg, iter(()), mesh=make_mesh(["cpu"]), tensorboard=False)
+    assert tr.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("path", CONFIGS,
