@@ -75,10 +75,30 @@ Phases, each printing one JSON progress line:
            features, against one rank at 8 x 100 fed both ranks' batches
            in rank order (tests/test_distributed.py's bounds); ms per step
            and the all-reduce's ms (CUDA events) of each;
+  profile_stages  (run right after comb) the port's
+           tools.profile_pipeline at 512 x 200, f32 and --serving, in
+           process, then tools.flop_bound --profile-log on each: per
+           stage the wall and device ms, kernels, busy share, B1
+           launches and the bound at the H100's peaks; every stage
+           present, wall >= device, busy share in (0, 1], B1 once per
+           comb-stage call, and the stage bounds summing to flop_bound's
+           TOTAL;
+  quality_holdout  tools/synth_dns.py's fresh holdout (12 pairs of 20 s,
+           seed 999, as a subprocess), then tools.quality_gate --log1p
+           --limit 8 on the card, held to the JAX package's result on it
+           (artifacts/quality_exp_log1p_30000_fresh_holdout.json): the
+           same pairs, noisy baselines within 1e-4 (STOI) and 1e-3 dB,
+           f32 within 0.005 and 0.1 dB, bf16 deltas no worse than JAX's
+           by more than 0.003 and 0.2 dB (the gate is on that comparison,
+           not on the tool's exit code: JAX's own result fails the tool's
+           gates on this holdout);
+  scaling  tools.scaling_bench at world 1 (one NCCL rank on the card), 3
+           steps of 8 x 100: training audio-s/s; the efficiency needs
+           several cards;
   comb_paths  B1 bit for bit at every shape a driven path launched it.
-Then a `kernels` line and, last, the result line.  Any failed check
-raises and the script exits non-zero without a result line; so does a
-machine without a CUDA card.
+Then a `seconds` line (each phase's), a `kernels` line and, last, the
+result line.  Any failed check raises and the script exits non-zero
+without a result line; so does a machine without a CUDA card.
 
 `python3 chip_smoke.py --dp-worker CONFIG.json` is one rank of train_dp
 (b), started by the script itself.
@@ -92,6 +112,7 @@ import io
 import json
 import os
 import pathlib
+import shutil
 import socket
 import statistics
 import subprocess
@@ -177,6 +198,24 @@ MESH_PCM_TOL = {"f32": 2e-4, "bf16": 5e-3}
 DP_BATCH, DP_SEQ, DP_STEPS, DP_RANKS = 8, 100, 4, 2
 DP_RTOL, DP_ATOL, DP_LOSS_ABS = 2e-5, 2e-6, 1e-5
 DP_WORKER_TIMEOUT_S = 400
+# the port's tools: profile_pipeline's shape and calls per stage
+PROFILE_SHAPE, PROFILE_ITERS = (512, 200), 3
+# the fresh holdout (artifacts/README.md) and the JAX package's
+# tools/quality_gate.py result on it; the port is held to that result:
+# baselines (the same audio) to the file's rounding, f32 within the
+# bf16 gate's STOI bound and 0.1 dB, and its bf16 deltas no worse than
+# JAX's by the slack (ROADMAP A12: JAX's own -0.535 dB is outside the
+# gate's 0.3 dB)
+HOLDOUT_ARGS = ("--pairs", "12", "--seconds", "20", "--seed", "999",
+                "--start-index", "90000")
+HOLDOUT_LIMIT = 8
+JAX_HOLDOUT = ROOT / "artifacts" / "quality_exp_log1p_30000_fresh_holdout.json"
+HOLDOUT_BASELINE_TOL = {"stoi": 1e-4, "si_sdr_db": 1e-3}
+HOLDOUT_F32_TOL = {"stoi": 0.005, "si_sdr_db": 0.1}
+HOLDOUT_BF16_SLACK = {"stoi": 0.003, "si_sdr_db": 0.2}
+# scaling_bench at world 1: per-device batch, length, steps
+SCALING_ARGS = ("--per-device-batch", "8", "--seq-len", "100", "--steps",
+                "3", "--max-world", "1")
 
 
 START = time.perf_counter()
@@ -771,14 +810,24 @@ def phase_profile(model_cpu, sig: np.ndarray, tick_ms: float) -> dict:
     return out
 
 
+def run_tool(main, *argv: str) -> tuple:
+    """A tool's main(argv) in this process: (its return value, what it
+    printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = main(list(argv))
+    return ret, buf.getvalue()
+
+
 def dispatch(*argv: str) -> str:
     """`python -m percepnet_tpu_torch <argv>` in this process, on the
     card; returns what it printed."""
     from percepnet_tpu_torch import __main__ as dispatcher
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        dispatcher.main(list(argv))
-    return buf.getvalue()
+    return run_tool(dispatcher.main, *argv)[1]
+
+
+def last_json(printed: str) -> dict:
+    return json.loads(printed.strip().splitlines()[-1])
 
 
 def read_pcm(path) -> np.ndarray:
@@ -1771,6 +1820,186 @@ def phase_train_dp(chain: pathlib.Path, smi: str) -> dict:
     return out
 
 
+def phase_profile_stages(smi: str) -> dict:
+    """tools.profile_pipeline at PROFILE_SHAPE in both tiers, and
+    tools.flop_bound --profile-log on each: one line per tier with every
+    stage's times, kernels, busy share, B1 launches, bound and share of
+    it.  A stage's bound is flop_bound's row of that name; pitch's is the
+    sum of its sub-stages'; model f32 / bf16 take the model row of the f32
+    / serving tier and full f32 / bf16 the tier's TOTAL.  It runs early:
+    minutes into a process the profiler loses kernels (PERF.md section 6),
+    which utils.profiling.stage_time detects and retries."""
+    import torch
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.tools import flop_bound, profile_pipeline
+    bsz, t = PROFILE_SHAPE
+    shape = ("--batch", str(bsz), "--frames", str(t))
+    prof, bounds, launches = {}, {}, {}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="profile_stages_"))
+    for tier, extra in (("f32", ()), ("bf16", ("--serving",))):
+        comb.reset_launches()
+        _, printed = run_tool(profile_pipeline.main, *shape, "--iters",
+                              str(PROFILE_ITERS), "--json", *extra)
+        torch.cuda.synchronize()
+        launches[tier] = {store: launched(f"profile_stages_{tier}", store)
+                          for store in ("f32", "bf16")}
+        log = tmp / f"profile_{tier}.log"
+        log.write_text(printed)
+        prof[tier] = last_json(printed)
+        _, printed = run_tool(flop_bound.main, *shape, "--profile-log",
+                              str(log), "--json", *extra)
+        bounds[tier] = last_json(printed)
+    shutil.rmtree(tmp)
+    rows = {tier: {r["name"]: r for r in bounds[tier]["stages"]}
+            for tier in bounds}
+    totals = {tier: bounds[tier]["total_bound_s"] for tier in bounds}
+    leaves = ("spectra", *profile_pipeline.PITCH_SUB_STAGES, "comb",
+              "model", "synthesis (idft+ola)")
+    out = {}
+    for tier in ("f32", "bf16"):
+        own = rows[tier]
+
+        def stage_bound(name):
+            if name == "pitch":
+                return sum(own[n]["bound"]
+                           for n in profile_pipeline.PITCH_SUB_STAGES)
+            if name.startswith("model"):
+                return rows[name.split()[1]]["model"]["bound"]
+            if name.startswith("full"):
+                return totals[name.split()[1]]
+            return own[name]["bound"]
+        table = []
+        for st in prof[tier]["stages"]:
+            bound = stage_bound(st["name"]) * 1e3
+            table.append({
+                "name": st["name"], "wall_ms": st["wall_ms"],
+                "device_ms": st["device_ms"], "launches": st["launches"],
+                "busy_share": st["busy_share"],
+                "untraced_wall_ms": st["untraced_wall_ms"],
+                "profiler_margin_s": st["margin_s"],
+                "b1_launches": st["b1_launches"], "bound_ms": bound,
+                "bound_by": own[st["name"]]["bound_by"]
+                if st["name"] in own else None,
+                "share_of_bound_wall": bound / st["wall_ms"],
+                "share_of_bound_device": bound / st["device_ms"]
+                if st["device_ms"] else None})
+        out[tier] = {
+            "stages": table, "total_bound_ms": totals[tier] * 1e3,
+            "sum_of_stage_bounds_ms": sum(own[n]["bound"]
+                                          for n in leaves) * 1e3,
+            "synthesis_bound_ms": own["synthesis (idft+ola)"]["bound"] * 1e3,
+            "speed_of_light_audio_s_per_s":
+                bounds[tier]["speed_of_light_audio_s_per_s"],
+            "b1_launches": launches[tier]}
+        emit("profile_stages", tier=tier, shape=[bsz, t],
+             iters=PROFILE_ITERS, card=smi, **out[tier])
+    for tier, res in out.items():
+        names = [r["name"] for r in res["stages"]]
+        require(names == list(profile_pipeline.STAGES),
+                f"profile_stages {tier}: every stage, got {names}")
+        for r in res["stages"]:
+            what = f"profile_stages {tier} {r['name']}"
+            require(r["wall_ms"] >= r["device_ms"] > 0,
+                    f"{what}: wall {r['wall_ms']} >= device "
+                    f"{r['device_ms']} > 0")
+            require(0 < r["busy_share"] <= 1,
+                    f"{what}: busy share {r['busy_share']}")
+            want = 1 if r["name"] == "comb" or r["name"].startswith(
+                "full") else 0
+            require(r["b1_launches"] == want,
+                    f"{what}: B1 {r['b1_launches']} per call, not {want}")
+            require(r["bound_ms"] > 0, f"{what}: a bound")
+        require(abs(res["sum_of_stage_bounds_ms"] - res["total_bound_ms"])
+                <= 1e-9 * res["total_bound_ms"],
+                f"profile_stages {tier}: stage bounds sum to flop_bound's "
+                f"TOTAL")
+    return out
+
+
+def phase_quality_holdout(tmp: pathlib.Path, smi: str) -> dict:
+    """ROADMAP A12: tools/synth_dns.py's fresh holdout (a subprocess),
+    then tools.quality_gate on the card in both tiers, held to the JAX
+    package's result on the same holdout (JAX_HOLDOUT); every number
+    printed beside JAX's before any check."""
+    import torch
+    from percepnet_tpu_torch.ops import comb
+    from percepnet_tpu_torch.tools import quality_gate
+    hold = tmp / "holdout"
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(ROOT / "tools" / "synth_dns.py"),
+                    str(hold), *HOLDOUT_ARGS], check=True, timeout=600,
+                   capture_output=True)
+    synth_s = time.perf_counter() - t0
+    comb.reset_launches()
+    t0 = time.perf_counter()
+    rc, printed = run_tool(
+        quality_gate.main, "--weights", str(CHECKPOINT), "--clean-dir",
+        str(hold / "clean"), "--noisy-dir", str(hold / "noisy"), "--log1p",
+        "--limit", str(HOLDOUT_LIMIT), "--out-dir", str(tmp / "gate"))
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    launches = {store: launched("quality_holdout", store)
+                for store in ("f32", "bf16")}
+    port = last_json(printed)
+    ref = json.loads(JAX_HOLDOUT.read_text())
+
+    def side_by_side(section, bounds):
+        return {k: {"port": port[section][k], "jax": ref[section][k],
+                    "diff": port[section][k] - ref[section][k],
+                    "bound": bound} for k, bound in bounds.items()}
+    out = {
+        "pairs": {"port": [r["name"] for r in port["per_pair"]],
+                  "jax": [r["name"] for r in ref["per_pair"]]},
+        "noisy_baseline": side_by_side("noisy_baseline",
+                                       HOLDOUT_BASELINE_TOL),
+        "f32": side_by_side("f32", HOLDOUT_F32_TOL),
+        "bf16": {k: {"port": port["bf16"][k], "jax": ref["bf16"][k]}
+                 for k in ("stoi", "si_sdr_db")},
+        "bf16_delta": {k: {"port": port["bf16_delta"][k],
+                           "jax": ref["bf16_delta"][k],
+                           "port_minus_jax": port["bf16_delta"][k]
+                           - ref["bf16_delta"][k], "slack": slack}
+                       for k, slack in HOLDOUT_BF16_SLACK.items()},
+        "gates": {k: {"port": port[k], "jax": ref[k]}
+                  for k in ("enhancement_ok", "bf16_gate_ok")},
+        "tool_exit_code": rc, "b1_launches": launches,
+        "seconds": {"synth_dns": synth_s, "quality_gate": gate_s},
+        "card": smi}
+    emit("quality_holdout", **out)
+    require(out["pairs"]["port"] == out["pairs"]["jax"],
+            "the holdout's selected pairs are JAX's, in its order")
+    for section in ("noisy_baseline", "f32"):
+        for k, row in out[section].items():
+            require(abs(row["diff"]) <= row["bound"],
+                    f"holdout {section} {k}: port {row['port']} vs JAX "
+                    f"{row['jax']} beyond {row['bound']}")
+    for k, row in out["bf16_delta"].items():
+        require(row["port_minus_jax"] >= -row["slack"],
+                f"holdout bf16 delta {k}: port {row['port']} worse than "
+                f"JAX's {row['jax']} by more than {row['slack']}")
+    require(rc in (0, 1), f"quality_gate exit code {rc}")
+    require(min(launches.values()) > 0,
+            f"quality_gate launched B1 in both stores: {launches}")
+    return out
+
+
+def phase_scaling(smi: str) -> dict:
+    """tools.scaling_bench at world 1 on the card: one NCCL rank, its
+    training audio-s/s.  Weak-scaling efficiency needs several cards."""
+    from percepnet_tpu_torch.tools import scaling_bench
+    results, printed = run_tool(scaling_bench.main, *SCALING_ARGS)
+    out = {"results": results, "card": smi,
+           "printed": printed.strip().splitlines(),
+           "efficiency": "not measured: it needs several cards, and this "
+                         "machine has one"}
+    emit("scaling", **out)
+    require(len(results) == 1 and results[0]["devices"] == 1
+            and results[0]["backend"] == "nccl"
+            and results[0]["audio_s_per_s"] > 0,
+            f"scaling_bench at world 1: {results}")
+    return out
+
+
 def phase_comb_paths(rng: np.random.Generator) -> dict:
     """B1 held against its plain version at every shape a driven path
     launched it at: each is one of COMB_CHECK_SHAPES (checked in phase
@@ -1819,30 +2048,44 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, compiled=compiled,
          library=str(kernels.LIBRARY.relative_to(ROOT)))
 
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        res = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        return res
+
     rng = np.random.default_rng(20261017)
-    comb_res = phase_comb(rng)
+    comb_res = timed("comb", phase_comb, rng)
+    stages = timed("profile_stages", phase_profile_stages, smi)
     model_cpu = load_params(CHECKPOINT)
-    phase_batch(model_cpu, batch_input(16, 200, rng))
+    timed("batch", phase_batch, model_cpu, batch_input(16, 200, rng))
     serve_sig = batch_input(8, 100, rng)
-    phase_batch_bf16(model_cpu, *quality_pairs(
+    timed("batch_bf16", phase_batch_bf16, model_cpu, *quality_pairs(
         16, np.random.default_rng(20261018)))
-    serve = phase_serve(model_cpu, serve_sig)
-    serve16 = phase_serve_bf16(model_cpu, serve_sig, serve)
-    phase_serve_raw(model_cpu, serve_sig[:, : 50 * 480])
-    phase_profile(model_cpu, serve_sig, serve["tick_ms_median"])
-    mesh = phase_serve_mesh(model_cpu, serve_sig)
+    serve = timed("serve", phase_serve, model_cpu, serve_sig)
+    serve16 = timed("serve_bf16", phase_serve_bf16, model_cpu, serve_sig,
+                    serve)
+    timed("serve_raw", phase_serve_raw, model_cpu, serve_sig[:, : 50 * 480])
+    timed("profile", phase_profile, model_cpu, serve_sig,
+          serve["tick_ms_median"])
+    mesh = timed("serve_mesh", phase_serve_mesh, model_cpu, serve_sig)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        (tmp / "cli").mkdir()
-        (tmp / "featgen").mkdir()
-        (tmp / "chain").mkdir()
-        cli = phase_cli_enhance(tmp / "cli", rng, smi)
-        feat = phase_featgen(tmp / "featgen", smi)
-        bench_res = phase_bench(smi)
-        phase_train(feat["records"], smi)
-        chain = phase_train_chain(tmp / "chain", smi)
-        phase_train_dp(tmp / "chain", smi)
-    paths = phase_comb_paths(rng)
+        for sub in ("cli", "featgen", "chain", "tools"):
+            (tmp / sub).mkdir()
+        cli = timed("cli_enhance", phase_cli_enhance, tmp / "cli", rng, smi)
+        feat = timed("featgen", phase_featgen, tmp / "featgen", smi)
+        bench_res = timed("bench", phase_bench, smi)
+        timed("train", phase_train, feat["records"], smi)
+        chain = timed("train_chain", phase_train_chain, tmp / "chain", smi)
+        timed("train_dp", phase_train_dp, tmp / "chain", smi)
+        holdout = timed("quality_holdout", phase_quality_holdout,
+                        tmp / "tools", smi)
+        timed("scaling", phase_scaling, smi)
+    paths = timed("comb_paths", phase_comb_paths, rng)
+    emit("seconds", **seconds)
 
     timed = comb_res["timed"]
     main_shape = next(iter(timed.values()))
@@ -1894,12 +2137,18 @@ def main() -> int:
         "bench_f32": bench_res["f32"]["comb_launches"],
         "train_chain_featgen": chain["launches"]["featgen"],
         "train_chain_enhance": chain["launches"]["enhance"],
-        "serve_mesh": mesh["launches"]["f32"]}
+        "serve_mesh": mesh["launches"]["f32"],
+        "profile_stages": sum(stages[tier]["b1_launches"]["f32"]
+                              for tier in stages),
+        "quality_holdout": holdout["b1_launches"]["f32"]}
     kernel_lines[1]["launches_by_path"] = {
         "serve_bf16": serve16["comb_bf16_launches"],
         "serve_mesh_bf16": mesh["launches"]["bf16"],
         "cli_enhance_bf16": cli["launches"]["bf16"],
-        "bench_bf16": bench_res["bf16"]["comb_launches"]}
+        "bench_bf16": bench_res["bf16"]["comb_launches"],
+        "profile_stages": sum(stages[tier]["b1_launches"]["bf16"]
+                              for tier in stages),
+        "quality_holdout": holdout["b1_launches"]["bf16"]}
     # every (B, T) a driven path gave B1, each checked bit for bit
     for line in kernel_lines[:2]:
         line["shapes_checked"] = {

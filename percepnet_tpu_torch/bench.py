@@ -49,7 +49,8 @@ import torch
 
 from percepnet_tpu_torch import constants as C
 from percepnet_tpu_torch import pipeline
-from percepnet_tpu_torch.models.percepnet import LAYERS, PercepNet
+from percepnet_tpu_torch.models.percepnet import (LAYERS, PercepNet,
+                                                  weight_count)
 from percepnet_tpu_torch.utils.profiling import bound_ms
 
 BASELINE_AUDIO_S_PER_S = 10_000.0   # BASELINE.json north-star target
@@ -124,9 +125,7 @@ def train_step_flops(batch: int, seq_len: int, remat: bool = True) -> int:
     the per-frame GRU step (all but gru1's input projection and the conv
     half of gru_rb's, which are hoisted out of the loop).  Elementwise
     work is left out."""
-    weights = sum(math.prod(leaves[w]) for leaves in LAYERS.values()
-                  for w in leaves if w.startswith("w"))
-    per_frame = 3 * 2 * weights
+    per_frame = 3 * 2 * weight_count()
     if remat:
         step = (sum(math.prod(LAYERS[g][w])
                     for g in ("gru2", "gru3", "gru_gb") for w in ("wi", "wh"))

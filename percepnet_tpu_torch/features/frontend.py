@@ -52,6 +52,40 @@ def init_state(batch: int, device: torch.device) -> FrontendState:
         gain=torch.zeros((batch,), dtype=torch.float32, device=device))
 
 
+def spectra(s_pad: torch.Tensor, *, serving: bool = False):
+    """Windowed spectra and band energies of every analysis frame of
+    s_pad [B, T*480 + PAD]: (xr, xi [B, T+5, 481], ex [B, T+5, 34]).
+
+    The lookahead window of frame t (offset 4800) covers the samples of
+    the analysis window of frame t+5, so ONE pass over T+5 frames gives
+    both the X spectra (rows :T) and the lookahead energies (rows 5:).
+    serving: the frames enter the DFT as bf16 (analyze_batch)."""
+    frames = s_pad[:, _X_OFF:].unfold(-1, C.WINDOW_SIZE, C.FRAME_SIZE)
+    xw = window.apply_window(frames)
+    if serving:
+        xw = xw.to(torch.bfloat16)
+    xr, xi = dft.forward_dft(xw)
+    return xr, xi, bands.band_energy(xr, xi)
+
+
+def comb_spectra(s_pad: torch.Tensor, period: torch.Tensor,
+                 xr: torch.Tensor, xi: torch.Tensor, ex: torch.Tensor, *,
+                 serving: bool = False, impl: str | None = None):
+    """The comb-filtered spectra of T frames and their coherence with X:
+    (pr, pi [B, T, 481], ep, exp [B, T, 34]) from s_pad, the periods
+    [B, T] and X's spectra and band energies of the same T frames.
+
+    serving: the kernel stores bf16, the DFT's operand type."""
+    pw = comb.comb_filter_windows_batch(
+        s_pad, period, _X_OFF,
+        out_dtype=torch.bfloat16 if serving else torch.float32, impl=impl)
+    pr, pi = dft.forward_dft(pw)
+    ep = bands.band_energy(pr, pi)
+    exp_raw = bands.band_corr(xr, xi, pr, pi)
+    exp = torch.clamp(exp_raw / torch.sqrt(1e-15 + ex * ep), 0.0, 1.0)
+    return pr, pi, ep, exp
+
+
 def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
                   *, serving: bool = False, impl: str | None = None):
     """Analyze a batch of chunks; returns per-frame features and spectra.
@@ -92,15 +126,7 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
     s_pad = torch.cat([state.tail, signal.to(torch.float32)], dim=-1)
 
     # --- spectra of the frame being enhanced -----------------------------
-    # The lookahead window of frame t (offset 4800) covers the samples of
-    # the analysis window of frame t+5, so ONE pass over T+5 frames gives
-    # both the X spectra (rows :T) and the lookahead energies (rows 5:).
-    frames = s_pad[:, _X_OFF:].unfold(-1, C.WINDOW_SIZE, C.FRAME_SIZE)
-    xw = window.apply_window(frames)
-    if serving:
-        xw = xw.to(torch.bfloat16)
-    xr_ext, xi_ext = dft.forward_dft(xw)
-    ex_ext = bands.band_energy(xr_ext, xi_ext)
+    xr_ext, xi_ext, ex_ext = spectra(s_pad, serving=serving)
     xr, xi = xr_ext[:, :n_frames], xi_ext[:, :n_frames]
     ex = ex_ext[:, :n_frames]
 
@@ -110,14 +136,8 @@ def analyze_batch(signal: torch.Tensor, state: FrontendState | None = None,
     period = track["period"]
 
     # --- comb filter (CUDA kernel on the card; window applied inside) ----
-    # serving tier: the kernel stores bf16, the DFT's operand type
-    pw = comb.comb_filter_windows_batch(
-        s_pad, period, _X_OFF,
-        out_dtype=torch.bfloat16 if serving else torch.float32, impl=impl)
-    pr, pi = dft.forward_dft(pw)
-    ep = bands.band_energy(pr, pi)
-    exp_raw = bands.band_corr(xr, xi, pr, pi)
-    exp = torch.clamp(exp_raw / torch.sqrt(1e-15 + ex * ep), 0.0, 1.0)
+    pr, pi, ep, exp = comb_spectra(s_pad, period, xr, xi, ex,
+                                   serving=serving, impl=impl)
 
     silence = torch.sum(ex, dim=-1) < 0.1
 

@@ -64,6 +64,14 @@ LAYERS: dict[str, dict[str, tuple[int, ...]]] = {
 }
 
 
+def weight_count() -> int:
+    """Entries of LAYERS' weights (biases left out): the multiply-adds of
+    one stream's frame through the forward pass, since each weight
+    multiplies once per frame."""
+    return sum(math.prod(shape) for leaves in LAYERS.values()
+               for leaf, shape in leaves.items() if leaf.startswith("w"))
+
+
 def _fan_in(layer: str, shape: tuple[int, ...]) -> int:
     """PyTorch-default init bound 1/sqrt(fan): GRUs use the hidden size,
     convs in*k, dense layers their input width."""

@@ -481,16 +481,25 @@ def pitch_track_ds(ds: torch.Tensor, init_period: torch.Tensor,
     pre = remove_doubling_precompute(xc, yy, t0)
     pre = {k: v.reshape(bsz, t, *v.shape[1:]) for k, v in pre.items()}
 
-    # the hysteresis chain: a loop over frames, batched over streams, with
-    # every value left on the device
+    period, gain = remove_doubling_scan(pre, init_period, init_gain)
+    return {"period": period, "gain": gain, "corr": corr.reshape(bsz, t),
+            "final_period": period[:, -1].contiguous(),
+            "final_gain": gain[:, -1].contiguous()}
+
+
+def remove_doubling_scan(pre: dict, init_period: torch.Tensor,
+                         init_gain: torch.Tensor):
+    """The hysteresis chain over T frames: remove_doubling_select frame
+    by frame from the carry (init_period int32 [B], init_gain f32 [B]),
+    batched over streams, every value left on the device.
+
+    pre: remove_doubling_precompute's dict with [B, T, ...] entries.
+    Returns (period int32 [B, T], gain f32 [B, T])."""
     p, g = init_period.to(torch.int32), init_gain.to(torch.float32)
     periods, gains = [], []
-    for i in range(t):
+    for i in range(pre["t0"].shape[1]):
         p, g = remove_doubling_select({k: v[:, i] for k, v in pre.items()},
                                       p, g)
         periods.append(p)
         gains.append(g)
-    return {"period": torch.stack(periods, 1),
-            "gain": torch.stack(gains, 1),
-            "corr": corr.reshape(bsz, t),
-            "final_period": p, "final_gain": g}
+    return torch.stack(periods, 1), torch.stack(gains, 1)

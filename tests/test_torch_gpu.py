@@ -10,6 +10,7 @@ port's own CPU run.  On that machine, from the repository root:
 """
 
 import contextlib
+import io
 import os
 
 import numpy as np
@@ -413,3 +414,56 @@ def test_nccl_world_one_train_step_equals_plain_step(cuda):
     assert o0.keys() == o1.keys()
     for k in o0:
         assert torch.equal(o0[k], o1[k]), k
+
+
+def test_profile_pipeline_stages_on_card(cuda):
+    """tools.profile_pipeline on the card: the comb stage (and each full
+    call) launches B1 once per call, no other stage launches it; every
+    stage has kernels, a wall time at least its device time and a busy
+    share in (0, 1]."""
+    from percepnet_tpu_torch.tools import profile_pipeline
+    for serving in (False, True):
+        rows = {r["name"]: r for r in profile_pipeline.run(
+            16, 20, 2, serving, cuda)}
+        assert list(rows) == list(profile_pipeline.STAGES)
+        for name, row in rows.items():
+            want = 1 if name == "comb" or name.startswith("full") else 0
+            what = (serving, name, row)
+            assert row["b1_launches"] == want, what
+            assert row["launches"] > 0 and row["device_ms"] > 0, what
+            assert row["wall_ms"] >= row["device_ms"], what
+            assert 0 < row["busy_share"] <= 1, what
+
+
+def test_quality_gate_on_card_matches_cpu(cuda, tmp_path):
+    """tools.quality_gate on one 20 s holdout pair (tools/synth_dns.py,
+    run as a subprocess) in both tiers: the card's f32 output is within
+    the card-vs-CPU PCM bound (5e-4 of full scale) of the port's CPU run,
+    and the report has both tiers."""
+    import json
+    import subprocess
+    import sys
+    from percepnet_tpu_torch.tools import quality_gate
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                 "synth_dns.py"),
+                    str(tmp_path / "h"), "--pairs", "1", "--seconds", "20",
+                    "--seed", "999", "--start-index", "90000"], check=True,
+                   timeout=300)
+    reports, outs = {}, {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            quality_gate.main([
+                "--weights", os.path.join(ROOT, "artifacts",
+                                          "exp_log1p_30000_params.npz"),
+                "--clean-dir", str(tmp_path / "h" / "clean"),
+                "--noisy-dir", str(tmp_path / "h" / "noisy"), "--log1p",
+                "--limit", "1", "--out-dir", str(tmp_path / dev),
+                "--device", dev])
+        reports[dev] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        outs[dev] = np.fromfile(tmp_path / dev / "f32" / "fileid_90000.pcm",
+                                "<i2").astype(np.float64)
+    assert reports["cuda"]["pairs"] == 1 and "bf16" in reports["cuda"]
+    assert outs["cuda"].shape == outs["cpu"].shape
+    assert np.abs(outs["cuda"]).max() > 0
+    assert np.abs(outs["cuda"] - outs["cpu"]).max() / 32768 <= 5e-4
