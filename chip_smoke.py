@@ -55,10 +55,20 @@ Phases, each printing one JSON progress line:
            the f64 gradients of both);
   train_chain  the user's path on the card through the commands:
            featgen (16 pairs, 200 frames) -> split-dataset -> train (8 x
-           100, 30 steps) with a dev list; the loss falls, checkpoint-30
-           has the JAX package's keys and dtypes, a resumed 31st step
-           equals an uninterrupted 31-step run bit for bit, and enhance
-           runs with checkpoint-31;
+           100, 10 steps) with a dev list; the loss falls, checkpoint-10
+           has the JAX package's keys and dtypes, a resumed 11th step
+           equals an uninterrupted 11-step run bit for bit, and enhance
+           runs with checkpoint-11;
+  recipe   the port's shell recipes as subprocesses on the card, on the
+           chain's 16 pairs: percepnet_tpu_torch/recipes/dns_challenge.sh
+           stages 2-5 (featgen, split, 4 steps of 8 x 100, export) with
+           DEVICE=cuda, its percepnet_weights.npz equal to the last
+           checkpoint and its nnet_data.cpp read back to it exactly; then
+           multicard.sh under torchrun with NPROC=1 (an NCCL group of
+           one) for the same steps, its checkpoint bit for bit the
+           recipe's plain train run; each stage's seconds (the
+           subprocesses' B1 launches are not counted here: their featgen
+           and enhance are the commands train_chain counts);
   serve_mesh  StreamingServer(mesh=...) at 64 slots, 8 streams spread
            over the slots, f32 and bf16 with the int16 wire: a 1-shard
            mesh bit for bit against the plain server, a 2-shard mesh on
@@ -188,7 +198,12 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_GRAD_COS = 1e-4, 1e-2, 0.9999
 TRAIN_CHECK_STEPS, TRAIN_STEPS_REL = 8, 1e-3
 # the chain: featgen's pairs and frames, then train's batch, length, steps
 CHAIN_PAIRS, CHAIN_FRAMES = 16, 200
-CHAIN_BATCH, CHAIN_SEQ, CHAIN_STEPS = 8, 100, 30
+# (few steps, for the script's time: the loss falls from the first)
+CHAIN_BATCH, CHAIN_SEQ, CHAIN_STEPS = 8, 100, 10
+# the recipes (subprocesses): training steps of both recipe runs, and
+# each run's time limit
+RECIPES = ROOT / "percepnet_tpu_torch" / "recipes"
+RECIPE_STEPS, RECIPE_TIMEOUT_S = 4, 600
 # serving over a mesh: the 2-shard server against the plain one, of full
 # scale (tests/test_parallel.py: f32 2e-4, bf16 5e-3), on the int16 wire
 MESH_CAPACITY, MESH_STREAMS = 64, 8
@@ -1392,8 +1407,8 @@ def phase_train_chain(tmp: pathlib.Path, smi: str) -> dict:
            "gr_range": [float(gr.min()), float(gr.max())]}
     emit("train_chain", **out)
     require(last5 < first, f"the chain's loss fell: {first} -> {last5}")
-    require(keys == want, "checkpoint-30 has the JAX package's keys and "
-            f"dtypes: {sorted(set(keys) ^ set(want))[:5]}")
+    require(keys == want, f"checkpoint-{CHAIN_STEPS} has the JAX "
+            f"package's keys and dtypes: {sorted(set(keys) ^ set(want))[:5]}")
     require(not differ, f"resumed step {CHAIN_STEPS + 1} equals the "
             f"uninterrupted run: {differ[:5]}")
     require(enhanced.size == (n_frames - 1) * 480,
@@ -1401,6 +1416,109 @@ def phase_train_chain(tmp: pathlib.Path, smi: str) -> dict:
     require(out["gr_finite"] and gr.size == n_frames * 68
             and 0.0 <= gr.min() and gr.max() <= 1.0,
             "the trained model's g/r are finite, in [0, 1]")
+    return out
+
+
+def run_recipe(script: str, *args, **env) -> dict[str, float]:
+    """Run a recipe of RECIPES from the repository root with `env` added,
+    as a subprocess; returns the seconds from each `== ` progress line it
+    prints to the next (the last to the script's exit)."""
+    proc = subprocess.Popen(
+        ["bash", str(RECIPES / script), *map(str, args)], cwd=ROOT,
+        env={**os.environ, **env}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    marks, tail = [], []
+    t0 = time.perf_counter()
+    try:
+        for line in proc.stdout:
+            tail = (tail + [line])[-40:]
+            if line.startswith("== "):
+                marks.append((line[3:].strip(), time.perf_counter() - t0))
+        rc = proc.wait(timeout=RECIPE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    end = time.perf_counter() - t0
+    if rc:
+        print("".join(tail), file=sys.stderr)
+    require(rc == 0, f"{script} exited {rc}")
+    marks.append(("end", end))
+    seconds = {name: b - a for (name, a), (_, b) in zip(marks, marks[1:])}
+    seconds["total"] = end
+    return seconds
+
+
+def phase_recipe(chain: pathlib.Path, tmp: pathlib.Path, smi: str) -> dict:
+    """The port's recipes on the card, as a user runs them (see the module
+    docstring): dns_challenge.sh stages 2-5 on the chain's pairs, then
+    multicard.sh with one process, held to the first's plain train."""
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    from percepnet_tpu_torch.io.nnet_data import model_from_nnet_data_cpp
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    work = tmp / "work"
+    for sub, prefix in (("clean", "c"), ("noisy", "n")):
+        (work / "pcm" / sub).mkdir(parents=True)
+        for i in range(CHAIN_PAIRS):
+            shutil.copy(chain / f"{prefix}{i}.pcm",
+                        work / "pcm" / sub / f"pair{i}.pcm")
+    train_args = ["--max-steps", str(RECIPE_STEPS), "--batch-size",
+                  str(CHAIN_BATCH), "--seq-len", str(CHAIN_SEQ),
+                  "--no-tensorboard"]
+    seconds = {"dns_challenge": run_recipe(
+        "dns_challenge.sh", "clean", "noisy", work, 2, DEVICE="cuda",
+        FRAMES_PER_UTT=str(CHAIN_FRAMES), TRAIN_ARGS=" ".join(train_args))}
+    exp = work / "exp"
+    feats = sorted((work / "feats").glob("*.f32"))
+    checkpoints = sorted(p.name for p in exp.glob("checkpoint-*.npz"))
+    name = f"checkpoint-{RECIPE_STEPS}.npz"
+    want = list(load_params(exp / name).parameters())
+
+    def distance(model) -> float:
+        return max((a - b).abs().max().item()
+                   for a, b in zip(model.parameters(), want))
+
+    npz_err = distance(load_params(exp / "percepnet_weights.npz"))
+    t0 = time.perf_counter()
+    cpp_err = distance(model_from_nnet_data_cpp(str(exp / "nnet_data.cpp")))
+    seconds["parse_nnet_data"] = time.perf_counter() - t0
+
+    lists = work / "lists"
+    seconds["multicard"] = run_recipe(
+        "multicard.sh", lists / "train_filelist.txt",
+        lists / "dev_filelist.txt", work / "multicard", "--config",
+        "configs/dns_challenge.yaml", *train_args, DEVICE="cuda", NPROC="1")
+    with np.load(exp / name) as a, \
+            np.load(work / "multicard" / name) as b:
+        differ = sorted(k for k in a.files
+                        if k not in b.files or not np.array_equal(a[k], b[k]))
+        n_keys = len(a.files)
+    out = {"card": smi, "seconds": seconds, "steps": RECIPE_STEPS,
+           "shape": [CHAIN_BATCH, CHAIN_SEQ], "pairs": CHAIN_PAIRS,
+           "records": len(feats), "checkpoints": checkpoints,
+           "npz_max_abs_err": npz_err, "nnet_data_max_abs_err": cpp_err,
+           "nnet_data_mb": (exp / "nnet_data.cpp").stat().st_size / 2**20,
+           "checkpoint_keys": n_keys, "multicard_vs_train_differ": differ}
+    emit("recipe", **out)
+    stages = [k for k in seconds["dns_challenge"] if k.startswith("stage")]
+    require([k.split(":")[0] for k in stages]
+            == ["stage 2", "stage 3", "stage 4", "stage 5"],
+            f"dns_challenge.sh ran stages 2-5: {stages}")
+    require(len(feats) == CHAIN_PAIRS and all(
+        f.stat().st_size == CHAIN_FRAMES * 138 * 4 for f in feats),
+        "the recipe's featgen wrote every pair's records")
+    require(checkpoints == [name], f"the recipe trained {RECIPE_STEPS} "
+            f"steps: {checkpoints}")
+    require(npz_err == 0.0, "percepnet_weights.npz holds the checkpoint's "
+            f"weights: {npz_err}")
+    # each value is written as the shortest repr of its f64 and read back
+    # through f64: the text loses nothing
+    require(cpp_err == 0.0, "nnet_data.cpp reads back to the checkpoint's "
+            f"weights: {cpp_err}")
+    require(not differ, "multicard.sh with one process equals the "
+            f"recipe's train bit for bit: {differ[:5]}")
     return out
 
 
@@ -2073,13 +2191,14 @@ def main() -> int:
     mesh = timed("serve_mesh", phase_serve_mesh, model_cpu, serve_sig)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        for sub in ("cli", "featgen", "chain", "tools"):
+        for sub in ("cli", "featgen", "chain", "recipe", "tools"):
             (tmp / sub).mkdir()
         cli = timed("cli_enhance", phase_cli_enhance, tmp / "cli", rng, smi)
         feat = timed("featgen", phase_featgen, tmp / "featgen", smi)
         bench_res = timed("bench", phase_bench, smi)
         timed("train", phase_train, feat["records"], smi)
         chain = timed("train_chain", phase_train_chain, tmp / "chain", smi)
+        timed("recipe", phase_recipe, tmp / "chain", tmp / "recipe", smi)
         timed("train_dp", phase_train_dp, tmp / "chain", smi)
         holdout = timed("quality_holdout", phase_quality_holdout,
                         tmp / "tools", smi)

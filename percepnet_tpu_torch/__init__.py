@@ -25,3 +25,23 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
+
+# The JAX package's top-level names, re-exported lazily (PEP 562): a
+# command that imports one module of the package loads no other.
+_PIPELINE_EXPORTS = ("PipelineState", "enhance_chunk", "enhance_utterance",
+                     "init_pipeline_state")
+
+
+def __getattr__(name):
+    import importlib
+    if name == "constants":
+        return importlib.import_module("percepnet_tpu_torch.constants")
+    if name in _PIPELINE_EXPORTS:
+        pipeline = importlib.import_module("percepnet_tpu_torch.pipeline")
+        return getattr(pipeline, name)
+    raise AttributeError(
+        f"module 'percepnet_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | {"constants"} | set(_PIPELINE_EXPORTS))

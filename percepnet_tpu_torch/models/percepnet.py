@@ -255,3 +255,17 @@ class PercepNet(nn.Module):
         strengths = act_sigmoid(rb_logits.to(torch.float32))
         new_state = ModelState(c1_mem, c2_mem, h1, h2, h3, hgb, hrb)
         return gains, strengths, new_state
+
+
+def forward_stream(model: PercepNet, features: torch.Tensor,
+                   state: ModelState, **kw):
+    """Single-frame streaming step: features [B, 70] -> (g [B, 34],
+    r [B, 34], state).  kw as PercepNet.forward."""
+    g, r, st = model(features[:, None], state, **kw)
+    return g[:, 0], r[:, 0], st
+
+
+def param_count(model: PercepNet) -> int:
+    """Entries of every parameter, biases included (the JAX package's
+    param_count; weight_count() leaves the biases out)."""
+    return sum(p.numel() for p in model.parameters())

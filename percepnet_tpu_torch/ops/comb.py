@@ -237,3 +237,12 @@ def comb_filter_windows_batch(s_pad: torch.Tensor, period: torch.Tensor,
     if resolve_impl(impl, s_pad.device) == "cuda":
         return comb_cuda(s_pad, period, x_offset, out_dtype)
     return comb_ref(s_pad, period, x_offset, out_dtype)
+
+
+def comb_filter_windows(s_pad: torch.Tensor, n_frames: int, x_offset: int,
+                        period: torch.Tensor) -> torch.Tensor:
+    """Single-utterance variant: s_pad [n_pad], period [T] -> [T, 960]
+    windowed comb outputs, through comb_filter_windows_batch (n_frames is
+    the JAX signature's and is implied by period)."""
+    del n_frames
+    return comb_filter_windows_batch(s_pad[None], period[None], x_offset)[0]

@@ -487,6 +487,28 @@ def pitch_track_ds(ds: torch.Tensor, init_period: torch.Tensor,
             "final_gain": gain[:, -1].contiguous()}
 
 
+def pitch_track(pitch_bufs: torch.Tensor,
+                init_period: torch.Tensor | int | None = None,
+                init_gain: torch.Tensor | float | None = None) -> dict:
+    """Pitch tracking over one utterance: the JAX package's pitch_track.
+
+    Args:
+      pitch_bufs: [T, 1728] per-frame pitch buffers (sliding windows of
+        the input signal; see features.frontend).
+      init_period, init_gain: scalar hysteresis carry (default 0).
+    Returns:
+      dict with period [T] int32, gain [T], corr [T] f32, and the scalar
+      final_period / final_gain carry for the next chunk.
+    """
+    dev = pitch_bufs.device
+    p0 = torch.as_tensor(0 if init_period is None else init_period,
+                         dtype=torch.int32, device=dev).reshape(1)
+    g0 = torch.as_tensor(0.0 if init_gain is None else init_gain,
+                         dtype=torch.float32, device=dev).reshape(1)
+    track = pitch_track_ds(pitch_downsample(pitch_bufs)[None], p0, g0)
+    return {k: v[0] for k, v in track.items()}
+
+
 def remove_doubling_scan(pre: dict, init_period: torch.Tensor,
                          init_gain: torch.Tensor):
     """The hysteresis chain over T frames: remove_doubling_select frame

@@ -467,3 +467,48 @@ def test_quality_gate_on_card_matches_cpu(cuda, tmp_path):
     assert outs["cuda"].shape == outs["cpu"].shape
     assert np.abs(outs["cuda"]).max() > 0
     assert np.abs(outs["cuda"] - outs["cpu"]).max() / 32768 <= 5e-4
+
+
+def test_comb_filter_windows_on_card_equals_plain_version(cuda):
+    """The single-utterance comb_filter_windows launches B1 on the card
+    and equals comb_ref bit for bit."""
+    s, p = _comb_inputs(1, 200, 11, cuda)
+    before = comb.launches["windows_f32"]
+    got = comb.comb_filter_windows(s[0], 200, 2400, p[0])
+    torch.cuda.synchronize()
+    assert comb.launches["windows_f32"] == before + 1
+    assert got.shape == (200, C.WINDOW_SIZE) and got.is_cuda
+    assert torch.equal(_bits(got), _bits(comb.comb_ref(s, p, 2400)[0]))
+
+
+def test_dns_challenge_recipe_on_card(cuda, tmp_path):
+    """percepnet_tpu_torch/recipes/dns_challenge.sh stages 2-5 with
+    DEVICE=cuda at the CPU test's size (4 pairs x 2 s, 100 frames each,
+    2 steps of 2 x 50): every stage runs, and the exported weights equal
+    the last checkpoint's."""
+    import shutil
+    import subprocess
+    import sys
+    from percepnet_tpu_torch.io.flat_npz import load_params
+    subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                 "synth_dns.py"),
+                    str(tmp_path / "src"), "--pairs", "4", "--seconds", "2",
+                    "--seed", "0"], check=True, timeout=300)
+    work = tmp_path / "work"
+    for sub in ("clean", "noisy"):
+        shutil.copytree(tmp_path / "src" / sub, work / "pcm" / sub)
+    env = dict(os.environ, DEVICE="cuda", FRAMES_PER_UTT="100",
+               TRAIN_ARGS="--max-steps 2 --batch-size 2 --seq-len 50 "
+                          "--no-tensorboard")
+    res = subprocess.run(
+        ["bash", os.path.join(ROOT, "percepnet_tpu_torch", "recipes",
+                              "dns_challenge.sh"), "clean", "noisy",
+         str(work), "2"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=900)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    exp = work / "exp"
+    assert (exp / "nnet_data.cpp").stat().st_size > 0
+    want = load_params(exp / "checkpoint-2.npz")
+    got = load_params(exp / "percepnet_weights.npz")
+    for a, b in zip(got.parameters(), want.parameters()):
+        assert torch.equal(a, b)

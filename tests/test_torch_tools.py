@@ -15,10 +15,10 @@ Bounds (measured on these inputs, from a CPU run, in brackets):
     within 0.01 dB [0, 0], and the JSON keys of the JAX tool's report
     (artifacts/quality_exp_log1p_30000_fresh_holdout.json was written by
     it).  JAX's enhance_files runs in 16-frame chunks, the shape
-    tests/test_torch_cli.py already compiles.  Should JAX's output read as
-    all zeros (the XLA:CPU cache flake of tests/test_serve.py), the f32
-    numbers are held instead against the port's own enhance_files and
-    evaluate_pair at those chunks, so that the flake cannot fail this test.
+    tests/test_torch_cli.py already compiles, with JAX's persistent
+    compilation cache off (a stale entry can reload a graph as zeros, the
+    XLA:CPU cache flake of tests/test_serve.py); an all-zero JAX output
+    fails the test.
 """
 
 import contextlib
@@ -29,17 +29,14 @@ import os
 import re
 import subprocess
 import sys
-import warnings
 
-import jax  # noqa: F401  (JAX and torch share each test process)
+import jax
 import numpy as np
 import pytest
 import torch
 
 from percepnet_tpu.cli import enhance as j_enhance
 from percepnet_tpu.cli import evaluate as j_evaluate
-from percepnet_tpu_torch.cli import enhance as p_enhance
-from percepnet_tpu_torch.cli import evaluate as p_evaluate
 from percepnet_tpu_torch.models.percepnet import LAYERS
 from percepnet_tpu_torch.tools import (check_all, check_parity, flop_bound,
                                        profile_pipeline, quality_gate,
@@ -267,19 +264,16 @@ def test_quality_gate_matches_jax_enhance_and_evaluate(holdout, port_report,
         assert abs(row["noisy_stoi"] - b["stoi"]) <= 1e-4
 
     outs = [str(tmp_path / (n + ".pcm")) for n in names]
-    j_enhance.enhance_files(j_enhance.load_params(CHECKPOINT), noisys, outs,
-                            raw_scale=True, log1p_features=True,
-                            batch_frames=16)
-    evaluate = j_evaluate.evaluate_pair
-    if all(not np.fromfile(o, "<i2").any() for o in outs):
-        warnings.warn("JAX's enhanced output is all zeros (the XLA:CPU "
-                      "cache flake); holding the tool against the port's "
-                      "own enhance_files instead")
-        p_enhance.enhance_files(p_enhance.load_params(CHECKPOINT), noisys,
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        j_enhance.enhance_files(j_enhance.load_params(CHECKPOINT), noisys,
                                 outs, raw_scale=True, log1p_features=True,
-                                batch_frames=16, device="cpu")
-        evaluate = p_evaluate.evaluate_pair
-    rows = [evaluate(c, o) for c, o in zip(cleans, outs)]
+                                batch_frames=16)
+    finally:
+        jax.config.update("jax_enable_compilation_cache", enabled)
+    assert all(np.fromfile(o, "<i2").any() for o in outs)
+    rows = [j_evaluate.evaluate_pair(c, o) for c, o in zip(cleans, outs)]
     assert abs(port_report["f32"]["stoi"]
                - np.mean([r["stoi"] for r in rows])) <= 1e-3
     assert abs(port_report["f32"]["si_sdr_db"]
