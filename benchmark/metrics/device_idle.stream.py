@@ -1,0 +1,8 @@
+"""device_idle.stream: share of the profiler window in which no
+operation ran on the card, %."""
+
+from benchmark.harness import readers
+
+
+def read(layer):
+    return readers.idle_pct(layer, "stream")

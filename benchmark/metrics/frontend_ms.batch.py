@@ -1,0 +1,8 @@
+"""frontend_ms.batch: the frontend stage's span per call, ms (host clock
+between synchronizes, around the program's call into the layer)."""
+
+from benchmark.harness import readers
+
+
+def read(layer):
+    return readers.span_ms(layer, "frontend", "batch")

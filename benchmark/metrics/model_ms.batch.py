@@ -1,0 +1,8 @@
+"""model_ms.batch: the model stage's span per call, ms (host clock
+between synchronizes, around the program's call into the layer)."""
+
+from benchmark.harness import readers
+
+
+def read(layer):
+    return readers.span_ms(layer, "model", "batch")
